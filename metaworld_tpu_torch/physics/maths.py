@@ -1,0 +1,44 @@
+"""Quaternion helpers (wxyz, like MuJoCo) on `(..., 4)` tensors.
+
+Counterpart of `metaworld_tpu/physics/maths.py`, limited to what the MT10
+slice reads.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def quat_mul(q1, q2):
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_rotate(q, v):
+    """Rotate vector v by quaternion q (wxyz)."""
+    qv = torch.cat([torch.zeros_like(v[..., :1]), v], dim=-1)
+    return quat_mul(quat_mul(q, qv), quat_conj(q))[..., 1:]
+
+
+def axis_angle_quat(axis, angle):
+    """Unit quaternion for a rotation of `angle` (...,) about `axis` (..., 3)."""
+    half = angle / 2.0
+    return torch.cat([torch.cos(half)[..., None],
+                      axis * torch.sin(half)[..., None]], dim=-1)
+
+
+def quat_to_xyzw(q):
+    return torch.cat([q[..., 1:], q[..., :1]], dim=-1)

@@ -1,0 +1,54 @@
+"""The port stands alone: no module of `metaworld_tpu_torch` imports JAX,
+flax or the JAX package, and importing the port loads none of them."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "metaworld_tpu_torch"
+ROOT = PKG.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "metaworld_tpu")
+MODULES = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts)
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_port_has_modules():
+    names = {p.relative_to(PKG).as_posix() for p in MODULES}
+    assert {"vector.py", "physics/cuda_step.py", "physics/engine_lanes.py",
+            "envs/core.py", "convert.py"} <= names
+    assert len([p for p in MODULES if p.name.endswith("_v3.py")]) == 10
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: p.relative_to(PKG).as_posix())
+def test_module_imports_no_jax(path):
+    for name in _imported(ast.parse(path.read_text())):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import metaworld_tpu_torch.vector, metaworld_tpu_torch.convert\n"
+        "import metaworld_tpu_torch.benchmarks as b\n"
+        "b.MT10(seed=0, num_goals=2)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'metaworld_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "clean" in res.stdout
