@@ -6,22 +6,29 @@ Phases, each printing its numbers on its own line; any failure exits
 non-zero before the result line:
 
   1. the card: name and power limit (nvidia-smi), torch's device name;
-  2. build of the physics kernel from metaworld_tpu_torch/csrc with nvcc,
-     printing what `-Xptxas -v` reports for the four variants;
+  2. build of the physics kernel from metaworld_tpu_torch/csrc with nvcc
+     (one translation unit), printing its build time, what `-Xptxas -v`
+     reports, and the kernel's registers and local (stack and spill) bytes
+     per thread, its shared memory per block and the blocks an SM holds at
+     once;
   3. kernel vs its plain PyTorch version on MT10 scenes at N = 131072 laid
      out as bench.py lays them out: 5 control steps, each from the plain
-     version's state, max abs error per state field <= 1e-4; every variant
-     v0..v3 must have been launched;
+     version's state, max abs error per state field <= 1e-4; one launch
+     per control step, and blocks of every variant v0..v3 run;
   4. the fused MT10 step (metaworld_tpu_torch.vector.FusedBatchedEnvs) at
      N = 131072 for 520 steps, so every slot crosses autoreset at
      max_episode_steps=500: finite outputs, episode lengths wrap to 1, the
-     kernel launched (steps x variant runs) times, no host synchronisation
-     inside the step loop (torch.cuda.set_sync_debug_mode("error")); and on
-     a small batch, the fused step with the kernel against the fused step
-     with the plain physics;
-  5. timings with CUDA events: kernel ms per control step, plain-version
-     ms, fused step ms and env-steps/s, each beside the card and its power
-     limit, with the kernel's bound and roofline share.
+     kernel launched exactly once per step with blocks of every variant, no
+     host synchronisation inside the step loop
+     (torch.cuda.set_sync_debug_mode("error")); and on a small batch, the
+     fused step with the kernel against the fused step with the plain
+     physics;
+  5. timings with CUDA events: kernel ms per control step as one launch
+     and, in turns with it, as the same kernel launched once per
+     same-variant run (the earlier seven-launch schedule); each variant's
+     blocks as one launch; plain-version ms, fused step ms and
+     env-steps/s, each beside the card and its power limit, with the
+     kernel's bound and roofline share.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -34,6 +41,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_ENVS = 131072
@@ -41,7 +49,11 @@ FUSED_STEPS = 520
 MAX_EPISODE_STEPS = 500
 PHYS_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-F32_OPS_PER_S = 67e12       # H100 SXM float32, outside the tensor cores
+# H100 SXM lane operations per second: 132 SMs x 128 float32 lanes x
+# 1.98 GHz. The published 67 TFLOP/s counts a fused multiply-add as two
+# operations; the kernel is built with --fmad=false, so it issues none and
+# each of its operations takes one lane slot.
+F32_OPS_PER_S = 33.5e12
 TPU_KERNEL = "metaworld_tpu/physics/pallas_step.py:281"  # _make_kernel
 
 
@@ -146,16 +158,26 @@ def main():
     # ---- 2. build ----
     t0 = time.time()
     _build.build_cuda()
-    print(f"[build] nvcc {time.time() - t0:.1f} s, flags {' '.join(_build.NVCC_FLAGS)}")
+    print(f"[build] nvcc, one translation unit: {time.time() - t0:.1f} s, flags "
+          f"{' '.join(_build.NVCC_FLAGS)}")
     for line in _build.ptxas_log.splitlines():
-        if line.startswith("#") or "registers" in line or "spill" in line:
+        if line.strip():
             print(f"[ptxas] {line.strip()}")
 
     # ---- 3. kernel vs plain at full width ----
     eng = bench_engine(dev, N_ENVS, max_episode_steps=MAX_EPISODE_STEPS)
-    runs = eng.variant_runs
-    print(f"[runs] {len(runs)} launches per step: "
-          + ", ".join(f"v{v}@{s}+{c}" for v, s, c in runs))
+    blocks, runs = eng.block_table, eng.variant_runs
+    info = cuda_step.kernel_info()
+    print(f"[kernel] {card}: {info['regs']} registers and {info['local_bytes']} B "
+          f"local memory per thread; {info['shared_bytes']} B shared memory per "
+          f"block; {info['blocks_per_sm']} blocks per SM")
+    print(f"[blocks] one launch of {blocks.host.shape[0]} blocks, by variant "
+          f"{blocks.blocks_by_variant} (heaviest first); earlier schedule: "
+          f"{len(runs)} launches " + ", ".join(f"v{v}@{s}+{c}" for v, s, c in runs))
+    env_variant = np.empty(N_ENVS, np.int64)
+    for v, first, count, _, _ in blocks.host:
+        env_variant[first:first + count] = v
+    env_variant = torch.from_numpy(env_variant).to(dev)
     table, ids = eng.scene_table, eng.task_ids
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -165,15 +187,16 @@ def main():
     err_by_variant = [0.0] * 4
     for t in range(PHYS_STEPS):
         act = torch.rand(N_ENVS, 4, generator=gen, device=dev) * 2 - 1
-        got = cuda_step.control_step(table, ids, sim, act, runs)
+        got = cuda_step.control_step(table, ids, sim, act, blocks)
         ref = cuda_step.plain_control_step(table, ids, sim, act)
         torch.cuda.synchronize()
         worst, field = 0.0, None
         for f in ref.__dataclass_fields__:
             d = (getattr(got, f) - getattr(ref, f)).abs().reshape(N_ENVS, -1)
             d = torch.nan_to_num(d, nan=float("inf")).amax(dim=1)
-            for v, s, c in runs:
-                err_by_variant[v] = max(err_by_variant[v], d[s:s + c].max().item())
+            for v in range(4):
+                err_by_variant[v] = max(err_by_variant[v],
+                                        d[env_variant == v].max().item())
             e = d.max().item()
             if e > worst:
                 worst, field = e, f
@@ -181,10 +204,12 @@ def main():
         if not worst <= 1e-4:
             fail(f"kernel disagrees with its plain version: {field} {worst:.3e}")
         sim = ref
-    if min(cuda_step.launches_by_variant) == 0:
-        fail(f"a variant was never launched: {cuda_step.launches_by_variant}")
-    print(f"[kernel-vs-plain] launches by variant {cuda_step.launches_by_variant}; "
-          f"max err by variant {['%.3e' % e for e in err_by_variant]}")
+    if cuda_step.launches != PHYS_STEPS or min(cuda_step.blocks_by_variant) == 0:
+        fail(f"expected {PHYS_STEPS} launches running every variant, got "
+             f"{cuda_step.launches}, blocks by variant {cuda_step.blocks_by_variant}")
+    print(f"[kernel-vs-plain] {cuda_step.launches} launches; blocks by variant "
+          f"{cuda_step.blocks_by_variant}; max err by variant "
+          f"{['%.3e' % e for e in err_by_variant]}")
 
     # ---- 4a. the fused step, kernel vs plain physics, small batch ----
     small_k = bench_engine(dev, 60, max_episode_steps=4, task_select="pseudorandom")
@@ -240,14 +265,20 @@ def main():
     torch.cuda.synchronize()
     wall = time.time() - t0
     main_launches = list(cuda_step.launches_by_variant)
+    main_blocks = list(cuda_step.blocks_by_variant)
     print(f"[fused] {FUSED_STEPS} steps x {N_ENVS} envs in {wall:.2f} s wall; "
-          f"dones {int(dones)}; launches {cuda_step.launches} {main_launches}")
+          f"dones {int(dones)}; launches {cuda_step.launches}, running each "
+          f"variant {main_launches}; blocks by variant {main_blocks}")
     if not bool(finite):
         fail("non-finite outputs, or an episode length that did not wrap to 1")
     if not bool(wrapped) or int(dones) < N_ENVS:
         fail(f"autoreset not crossed by every slot (dones {int(dones)})")
-    if cuda_step.launches != FUSED_STEPS * len(runs):
-        fail(f"kernel launches {cuda_step.launches} != {FUSED_STEPS} x {len(runs)}")
+    if cuda_step.launches != FUSED_STEPS or main_launches != [FUSED_STEPS] * 4:
+        fail(f"kernel launches {cuda_step.launches} {main_launches}: expected "
+             f"one per step, each running blocks of every variant")
+    if main_blocks != [FUSED_STEPS * c for c in blocks.blocks_by_variant]:
+        fail(f"blocks by variant {main_blocks} != {FUSED_STEPS} x "
+             f"{blocks.blocks_by_variant}")
     if tuple(out["obs"].shape) != (N_ENVS, 49):
         fail(f"obs shape {tuple(out['obs'].shape)}")
 
@@ -258,13 +289,28 @@ def main():
     mocap, target, effort = cuda_step._sim_and_ctl(table, ids, sim, act)
     ctl = torch.cat([target.T, effort[None]]).contiguous()
     rows = cuda_step.pack_sim_rows(sim).contiguous()
-    kernel_ms = time_ms(lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, runs), 50)
+    first_env = blocks.host[:, 1]
+    run_tables = [blocks.select((first_env >= s) & (first_env < s + c))
+                  for _, s, c in runs]
+
+    def one_launch():
+        cuda_step.launch_rows(table.rows, ids, rows, ctl, blocks)
+
+    def per_run_launches():
+        for bt in run_tables:
+            cuda_step.launch_rows(table.rows, ids, rows, ctl, bt)
+
+    turns = [(name, time_ms(fn, 50)) for name, fn in (
+        ("one", one_launch), ("runs", per_run_launches),
+        ("runs", per_run_launches), ("one", one_launch))]
+    kernel_ms = sum(ms for name, ms in turns if name == "one") / 2
+    runs_ms = sum(ms for name, ms in turns if name == "runs") / 2
     plain_ms = time_ms(lambda: cuda_step.plain_control_step(table, ids, sim, act), 3, 1)
-    wrapper_ms = time_ms(lambda: cuda_step.control_step(table, ids, sim, act, runs), 20)
+    wrapper_ms = time_ms(lambda: cuda_step.control_step(table, ids, sim, act, blocks), 20)
     fused_ms = time_ms(lambda: eng.step(state, act), 20)
 
     ops = {v: ops_per_env_substep(v) for v in range(4)}
-    n_by_v = [sum(c for vv, _, c in runs if vv == v) for v in range(4)]
+    n_by_v = [int(blocks.host[blocks.host[:, 0] == v, 2].sum()) for v in range(4)]
     bytes_per_env = (2 * cuda_step.SIM_ROWS + 4) * 4 + 4
     total_ops = sum(ops[v] * 5 * n_by_v[v] for v in range(4))
     bound_bytes_ms = (N_ENVS * bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
@@ -272,8 +318,12 @@ def main():
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
     print(f"[ops] elementwise ops per env per substep by variant {ops}; "
           f"bytes per env per control step {bytes_per_env}")
+    print(f"[schedule] {card}: kernel per control step, in turns "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in turns)
+          + f": one launch {kernel_ms:.4f} ms against {len(runs)} launches "
+          f"{runs_ms:.4f} ms ({runs_ms / kernel_ms:.2f}x)")
     print(f"[time] {card}: kernel {kernel_ms:.4f} ms per control step "
-          f"(all {len(runs)} runs, N={N_ENVS}); wrapper incl. weld target and "
+          f"(one launch, N={N_ENVS}); wrapper incl. weld target and "
           f"pack/unpack {wrapper_ms:.4f} ms; plain torch physics {plain_ms:.2f} ms")
     print(f"[bound] {card}: bytes {bound_bytes_ms * 1e3:.2f} us, ops "
           f"{bound_ops_ms * 1e3:.2f} us -> bound {bound_ms * 1e3:.2f} us "
@@ -284,11 +334,10 @@ def main():
 
     kernels = []
     for v in range(4):
-        vruns = [r for r in runs if r[0] == v]
+        vblocks = blocks.select(blocks.host[:, 0] == v)
         n_v = n_by_v[v]
-        k_ms = time_ms(lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, vruns), 50)
-        sl = [(s, c) for _, s, c in vruns]
-        idx = torch.cat([torch.arange(s, s + c, device=dev) for s, c in sl])
+        k_ms = time_ms(lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, vblocks), 50)
+        idx = torch.nonzero(env_variant == v).flatten()
         sim_v = sim.map(lambda t: t[idx])
         p_ms = time_ms(lambda: cuda_step.plain_control_step(
             table, ids[idx], sim_v, act[idx]), 3, 1)
@@ -303,8 +352,9 @@ def main():
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
             "library_ms": None,
         })
-        print(f"[kernel v{v}] {card}: {n_v} envs in {len(vruns)} runs, "
-              f"{k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {max(b_bytes, b_ops) * 1e3:.2f} us")
+        print(f"[kernel v{v}] {card}: {n_v} envs in {len(vblocks.host)} blocks, "
+              f"one launch {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+              f"{max(b_bytes, b_ops) * 1e3:.2f} us")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 // Runs the same templated substep as the CUDA kernel (substep.cuh) on the
 // CPU, one env after another, through the same packed-row interface as
 // step_kernel.cu, so the kernel's arithmetic can be held against the
-// PyTorch lane engine on a machine without a GPU. Built with g++ by
-// physics/_build.py::build_host; the engine never calls it.
-#include "substep.cuh"
+// PyTorch lane engine on a machine without a GPU. `mw_host_blocks` walks a
+// block table through the kernel's own per-block code (block_step.cuh).
+// Built with g++ by physics/_build.py::build_host; the engine never calls
+// it.
+#include "block_step.cuh"
 
 namespace {
 
@@ -34,6 +36,18 @@ extern "C" int mw_host_step(int variant, const float* table, const int* task_ids
     case 3: run<true, true, true>(table, task_ids, state_in, ctl, state_out, n, start, count); return 0;
     default: return 1;
   }
+}
+
+// The kernel's launch over `n_blocks` block-table rows, block after block.
+extern "C" int mw_host_blocks(const int* blocks, int n_blocks, const float* table,
+                              const int* task_ids, const float* state_in,
+                              const float* ctl, float* state_out, int n) {
+  for (int b = 0; b < n_blocks; ++b) {
+    const mw::BlockRow blk = mw::block_row(blocks, b);
+    for (int t = 0; t < blk.count; ++t)
+      mw::step_env(blk, table, task_ids, state_in, ctl, state_out, n, t);
+  }
+  return 0;
 }
 
 extern "C" int mw_layout(int* sc_rows, int* sim_rows) {

@@ -23,6 +23,15 @@
 #define MW_HD
 #define MW_HDI inline
 #endif
+// Full unrolling of the fixed-count loops over objects, joints, boxes and
+// sides: rolled, their per-slot arrays are indexed at run time and live in
+// local memory (a 1 KB stack frame per thread on sm_90a); unrolled, they
+// stay in registers. It changes no operation or its order.
+#ifdef __CUDACC__
+#define MW_UNROLL _Pragma("unroll")
+#else
+#define MW_UNROLL
+#endif
 #ifdef __CUDA_ARCH__
 #define MW_LDG(p) __ldg(p)
 #else
@@ -239,7 +248,10 @@ MW_HDI Q4 qnlerp(Q4 q, Q4 p, float alpha) {
 // ---------------------------------------------------------------------------
 
 // One task's scene row in global memory (read-only; a warp mostly reads one
-// task's row, so the loads broadcast).
+// task's row, so the loads broadcast). Read through the read-only cache:
+// staging the block's task rows in shared memory measured no faster on the
+// H100 (with plain shared loads ptxas hoists the rows into registers and
+// spills; with volatile ones it ties; PERF.md).
 struct Scene {
   const float* p;
   MW_HDI float operator()(int r) const { return MW_LDG(p + r); }
@@ -279,7 +291,7 @@ MW_HDI State load_state(const float* r, int stride, int i) {
   s.hand_vel = ld3(r, R_HAND_VEL, stride, i);
   s.gripper = r[R_GRIPPER * stride + i];
   s.gripper_vel = r[R_GRIPPER_VEL * stride + i];
-  for (int k = 0; k < MAX_OBJ; ++k) {
+  MW_UNROLL for (int k = 0; k < MAX_OBJ; ++k) {
     s.obj_pos[k] = ld3(r, R_OBJ_POS + 3 * k, stride, i);
     int q = R_OBJ_QUAT + 4 * k;
     s.obj_quat[k] = {r[q * stride + i], r[(q + 1) * stride + i],
@@ -290,7 +302,7 @@ MW_HDI State load_state(const float* r, int stride, int i) {
     s.attach_off[k] = ld3(r, R_ATTACH_OFF + 3 * k, stride, i);
     s.unanchored[k] = r[(R_UNANCHORED + k) * stride + i];
   }
-  for (int j = 0; j < MAX_JOINT; ++j) {
+  MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
     s.joint_q[j] = r[(R_JOINT_Q + j) * stride + i];
     s.joint_v[j] = r[(R_JOINT_V + j) * stride + i];
     s.hooked[j] = r[(R_HOOKED + j) * stride + i];
@@ -308,7 +320,7 @@ MW_HDI void store_state(float* r, int stride, int i, const State& s) {
   st3(r, R_HAND_VEL, stride, i, s.hand_vel);
   r[R_GRIPPER * stride + i] = s.gripper;
   r[R_GRIPPER_VEL * stride + i] = s.gripper_vel;
-  for (int k = 0; k < MAX_OBJ; ++k) {
+  MW_UNROLL for (int k = 0; k < MAX_OBJ; ++k) {
     st3(r, R_OBJ_POS + 3 * k, stride, i, s.obj_pos[k]);
     int q = R_OBJ_QUAT + 4 * k;
     r[q * stride + i] = s.obj_quat[k].w;
@@ -321,7 +333,7 @@ MW_HDI void store_state(float* r, int stride, int i, const State& s) {
     st3(r, R_ATTACH_OFF + 3 * k, stride, i, s.attach_off[k]);
     r[(R_UNANCHORED + k) * stride + i] = s.unanchored[k];
   }
-  for (int j = 0; j < MAX_JOINT; ++j) {
+  MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
     r[(R_JOINT_Q + j) * stride + i] = s.joint_q[j];
     r[(R_JOINT_V + j) * stride + i] = s.joint_v[j];
     r[(R_HOOKED + j) * stride + i] = s.hooked[j];
@@ -458,7 +470,7 @@ MW_HDI V3 axis_corr(const AxisHit& h) {
 
 MW_HDI V3 box_contacts(const Scene& sc, const V3* bpos, V3 p, float r) {
   V3 acc = sphere_box_pushout(p, r, bpos[0], sc.v3(S_SIZE)).corr * sc(S_EXISTS);
-  for (int s = 1; s < MAX_STATIC; ++s)
+  MW_UNROLL for (int s = 1; s < MAX_STATIC; ++s)
     acc = acc + sphere_box_pushout(p, r, bpos[s], sc.v3(S_SIZE + 3 * s)).corr
                     * sc(S_EXISTS + s);
   return acc;
@@ -619,26 +631,26 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
   // --- hand vs static geometry ---
   const V3 fixture = st.fixture_pos;
   V3 bpos[MAX_STATIC];
-  for (int s = 0; s < MAX_STATIC; ++s) bpos[s] = static_box_pos(sc, s, fixture);
+  MW_UNROLL for (int s = 0; s < MAX_STATIC; ++s) bpos[s] = static_box_pos(sc, s, fixture);
 
   if constexpr (WITH_HAND_BOXES) {
     V3 h = new_hand;
     V3 tip = sphere_box_pushout(h, HAND_TIP_R, bpos[0], sc.v3(S_SIZE)).corr * sc(BLK);
-    for (int s = 1; s < MAX_STATIC; ++s)
+    MW_UNROLL for (int s = 1; s < MAX_STATIC; ++s)
       tip = tip + sphere_box_pushout(h, HAND_TIP_R, bpos[s], sc.v3(S_SIZE + 3 * s)).corr
                       * sc(BLK + s);
     h = h + tip;
     V3 h_up = {h.x, h.y, h.z + 0.105f};
     V3 kn = sphere_box_pushout(h_up, HAND_KNUCKLE_R, bpos[0], sc.v3(S_SIZE)).corr * sc(BLK);
-    for (int s = 1; s < MAX_STATIC; ++s)
+    MW_UNROLL for (int s = 1; s < MAX_STATIC; ++s)
       kn = kn + sphere_box_pushout(h_up, HAND_KNUCKLE_R, bpos[s], sc.v3(S_SIZE + 3 * s)).corr
                     * sc(BLK + s);
     h = h + kn;
     V3 pads[2];
     pad_centers(h, st.gripper, pads[0], pads[1]);
-    for (int side = 0; side < 2; ++side) {
+    MW_UNROLL for (int side = 0; side < 2; ++side) {
       V3 corr = pad_box_corr(pads[side], bpos[0], sc.v3(S_SIZE), sc(BLK));
-      for (int s = 1; s < MAX_STATIC; ++s)
+      MW_UNROLL for (int s = 1; s < MAX_STATIC; ++s)
         corr = corr + pad_box_corr(pads[side], bpos[s], sc.v3(S_SIZE + 3 * s), sc(BLK + s));
       h = h + corr;
     }
@@ -667,7 +679,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
   float clamp_gap = 0.0f;
   if constexpr (WITH_OBJECTS) {
     float obj_gap[MAX_OBJ];
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       V3 gp = st.obj_pos[i] + sc.v3(O_GRASP_OFF + 3 * i);
       V3 rel = gp - hand0;
       bool between = fabsf(rel.y) < gap0 / 2.0f + 0.01f;
@@ -721,7 +733,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
   if constexpr (WITH_OBJECTS) {
     // --- attach / detach ---
     float gap_m = gripper * GRIPPER_FULL_OPEN;
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       V3 go = sc.v3(O_GRASP_OFF + 3 * i);
       bool gripping = (effort > 0.0f) && ((squeeze > 0.0f) || (sc(O_HOOKG + i) > 0.0f));
       bool tight_x = fabsf(st.obj_pos[i].x + go.x - hand0.x) < sc(O_GRASP_X_TOL + i);
@@ -755,7 +767,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     V3* pos = ob.pos;
     V3* vel = ob.vel;
     bool pinned_anchor[MAX_OBJ], free_old[MAX_OBJ];
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       bool pa = (sc(O_ANCHORED + i) > 0.0f) && (unanchored[i] == 0.0f);
       pinned_anchor[i] = pa;
       bool planar = sc.b(O_PLANAR + i);
@@ -780,9 +792,9 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     V3 kin[2];
     pad_centers(hand0, st.gripper, kin[0], kin[1]);
     bool pad_side_hit[2][MAX_OBJ];
-    for (int side = 0; side < 2; ++side) {
+    MW_UNROLL for (int side = 0; side < 2; ++side) {
       V3 kc = kin[side];
-      for (int i = 0; i < MAX_OBJ; ++i) {
+      MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
         V3 p = pos[i], v3 = vel[i];
         float radius = sc(O_RADIUS + i);
         V3 d = p - kc;
@@ -831,17 +843,17 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     bool both = (sc(O_EXISTS) > 0.0f) && (sc(O_EXISTS + 1) > 0.0f) &&
                 (sc(LINK_ENABLE) == 0.0f);
     bool beyond_range[MAX_OBJ], mobile[MAX_OBJ];
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       float v_abs = 0.0f;
       float pk[2] = {pos[i].x, pos[i].y};
-      for (int k = 0; k < 2; ++k) {
+      MW_UNROLL for (int k = 0; k < 2; ++k) {
         float viol = mn(pk[k] - sc(O_XY_LO + 2 * i + k), 0.0f) +
                      mx(pk[k] - sc(O_XY_HI + 2 * i + k), 0.0f);
         v_abs = v_abs + fabsf(viol);
       }
       beyond_range[i] = (sc(O_XY_LIMITED + i) > 0.0f) && (v_abs > 1e-9f);
     }
-    for (int i = 0; i < MAX_OBJ; ++i)
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i)
       mobile[i] = (st.attached[i] == 0.0f) && !pinned_anchor[i] &&
                   (sc(O_EXISTS + i) > 0.0f) && !beyond_range[i];
     float w_tot = mx(b2f(mobile[0]) + b2f(mobile[1]) * 1.0f, 1.0f);
@@ -856,7 +868,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     vel[0] = vel[0] - n01 * (vn_act * w0);
     vel[1] = vel[1] + n01 * (vn_act * w1);
     bool drag_on = active01 && ((st.attached[0] > 0.0f) || (st.attached[1] > 0.0f));
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       V3 dv_oo = hand_vel - vel[i];
       V3 dv_oo_t = dv_oo - n01 * dot(dv_oo, n01);
       float take = b2f(mobile[i] && (st.attached[i] == 0.0f)) * (drag_on ? 0.8f : 0.0f);
@@ -864,7 +876,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     }
 
     // --- static boxes ---
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       V3 corr = box_contacts(sc, bpos, pos[i], sc(O_RADIUS + i));
       pos[i] = pos[i] + corr * b2f(free_old[i]);
       V3 corr_n = safe_normalize(corr);
@@ -874,7 +886,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     }
 
     // --- ground / pit support ---
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       V3 p = pos[i], v3 = vel[i];
       float half_h = sc(O_HALF_H + i);
       float sz = support_z(sc, p.x, p.y);
@@ -893,7 +905,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     }
 
     // --- planar pinning ---
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       float z_pin = support_z(sc, pos[i].x, pos[i].y) + sc(O_HALF_H + i);
       bool pin = sc.b(O_PLANAR + i) && free_old[i];
       pos[i].z = pin ? z_pin : pos[i].z;
@@ -901,12 +913,12 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     }
 
     // --- limited slide joints ---
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       float lim_on = sc(O_XY_LIMITED + i) * b2f(free_old[i]);
       bool side_held = pad_side_hit[0][i] || pad_side_hit[1][i];
       float comp_v[2] = {vel[i].x, vel[i].y};
       float pk[2] = {pos[i].x, pos[i].y};
-      for (int k = 0; k < 2; ++k) {
+      MW_UNROLL for (int k = 0; k < 2; ++k) {
         float viol = mn(pk[k] - sc(O_XY_LO + 2 * i + k), 0.0f) +
                      mx(pk[k] - sc(O_XY_HI + 2 * i + k), 0.0f);
         float outside = lim_on * b2f(fabsf(viol) > 0.0f);
@@ -920,8 +932,8 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
 
     // --- jam back-reaction ---
     V3 jam_corr = {0.0f, 0.0f, 0.0f};
-    for (int side = 0; side < 2; ++side) {
-      for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int side = 0; side < 2; ++side) {
+      MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
         V3 d = kin[side] - pos[i];
         V3 pen = {0.015f + sc(O_HALF_X + i) - fabsf(d.x),
                   0.0045f + sc(O_RADIUS + i) - fabsf(d.y),
@@ -942,7 +954,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     // --- attached objects ride the hand ---
     V3 att_pos[MAX_OBJ];
     float att_z[MAX_OBJ];
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       att_pos[i] = new_hand + attach_off[i];
       float sup = support_z(sc, att_pos[i].x, att_pos[i].y);
       att_z[i] = mx(att_pos[i].z, sup + sc(O_HALF_H + i));
@@ -954,16 +966,16 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
                        (fabsf(tool_prev.z - handle_prev.z) <= 0.065f);
     att_z[0] = att_z[0] + (linked_prev ? mx(att_z[0], handle_prev.z - 0.04f) - att_z[0]
                                        : 0.0f);
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       bool pinned = (attached[i] > 0.0f) && (att_pos[i].z < att_z[i] - 1e-9f);
       attach_off[i].z = pinned ? att_z[i] - new_hand.z : attach_off[i].z;
       att_pos[i].z = att_z[i];
     }
     // climb over shallow walls
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       float r = sc(O_RADIUS + i);
       float climb = 0.0f;
-      for (int s = 0; s < MAX_STATIC; ++s) {
+      MW_UNROLL for (int s = 0; s < MAX_STATIC; ++s) {
         V3 bs = sc.v3(S_SIZE + 3 * s);
         Push pu = sphere_box_pushout(att_pos[i], r, bpos[s], bs);
         float pen_up = (bpos[s].z + bs.z + r) - att_pos[i].z;
@@ -977,7 +989,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
       att_pos[i].z = att_pos[i].z + climb;
       attach_off[i].z = attach_off[i].z + climb;
     }
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       V3 corr_att = box_contacts(sc, bpos, att_pos[i], sc(O_RADIUS + i));
       corr_att = corr_att * b2f(attached[i] > 0.0f);
       att_pos[i] = att_pos[i] + corr_att;
@@ -985,7 +997,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     }
     // attached-tool chain jam
     float jam_hx = 0.0f, jam_hy = 0.0f;
-    for (int c = 0; c < 2; ++c) {
+    MW_UNROLL for (int c = 0; c < 2; ++c) {
       int a = c, b = 1 - c;
       V3 dj = att_pos[a] - pos[b];
       V3 pen = {hs_oo.x - fabsf(dj.x), hs_oo.y - fabsf(dj.y), hs_oo.z - fabsf(dj.z)};
@@ -1001,24 +1013,24 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     float jam_n = norm3(jam_h3);
     V3 jam_dir = jam_h3 * (1.0f / mx(jam_n, 1e-9f));
     float proj_slip = 0.0f;
-    for (int i = 0; i < MAX_OBJ; ++i)
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i)
       proj_slip = proj_slip + b2f(attached[i] > 0.0f) * dot(attach_off[i], jam_dir);
     float slip_g = clip(0.035f - proj_slip, 0.0f, jam_n);
     V3 slip_vec = jam_dir * slip_g;
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       bool att = attached[i] > 0.0f;
       attach_off[i] = sel(att, attach_off[i] + slip_vec, attach_off[i]);
       att_pos[i] = sel(att, att_pos[i] + jam_h3, att_pos[i]);
     }
     new_hand = new_hand + (jam_h3 - slip_vec);
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       bool att = attached[i] > 0.0f;
       pos[i] = sel(att, att_pos[i], pos[i]);
       vel[i] = sel(att, hand_vel, vel[i]);
     }
 
     // --- rotational dynamics ---
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       float sz_u = support_z(sc, pos[i].x, pos[i].y);
       bool on_ground = (pos[i].z - sc(O_HALF_H + i)) <= (sz_u + 1e-4f);
       bool is_sph = sc.b(IS_SPHERE + i);
@@ -1060,7 +1072,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     float lk = linked ? 1.0f : 0.0f;
     pos[1] = pos[1] + corr_link * lk;
   } else {
-    for (int i = 0; i < MAX_OBJ; ++i) {
+    MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
       ob.pos[i] = st.obj_pos[i];
       ob.vel[i] = st.obj_vel[i];
       ob.quat[i] = st.obj_quat[i];
@@ -1078,7 +1090,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     // --- fixture free dynamics ---
     JointCtx jc[MAX_JOINT];
     float q_free[MAX_JOINT];
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       V3 axis = sc.v3(J_AXIS + 3 * j);
       float qj = st.joint_q[j], qvj = st.joint_v[j];
       V3 com_arm = qrot(axquat(axis, qj), sc.v3(J_COM + 3 * j));
@@ -1093,7 +1105,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
                         : qvj + (f_ext / M_j) * dt;
       q_free[j] = qj + qvj * dt;
     }
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       JointCtx& c = jc[j];
       c.handle = handle_pos(sc, j, fixture, q_free[j]);
       c.motion = motion_dir(sc, j, q_free[j]);
@@ -1116,7 +1128,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     V3 gap_w = target - new_hand;
     bool in_claw_j[MAX_JOINT];
     float q_inv_j[MAX_JOINT], gap_perp_j[MAX_JOINT];
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       const JointCtx& c = jc[j];
       V3 axis = sc.v3(J_AXIS + 3 * j);
       V3 rel_h = c.handle - new_hand;
@@ -1174,7 +1186,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     float jam_ex[MAX_JOINT];
     float dq_j[MAX_JOINT], q_new_j[MAX_JOINT], dq_hook_j[MAX_JOINT];
     float qv_hi_j[MAX_JOINT], qv_lo_j[MAX_JOINT];
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       const JointCtx& c = jc[j];
       V3 pt_face = c.handle + c.press_pt_off;
       PartAcc acc;
@@ -1198,7 +1210,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
       float rail_w = 1.0f - b2f(!c.has_bar && !c.is_hinge && (fabsf(c.motion.z) < 0.5f));
       acc.add(box_part<false>(c, rail, rail_prev, RAIL_HALF, false, rail_w, nullptr));
       if constexpr (WITH_OBJECTS) {
-        for (int i = 0; i < MAX_OBJ; ++i) {
+        MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
           V3 toff = sc.v3(O_TOOL_OFF + 3 * i);
           V3 tool_i = ob.pos[i] + qrot(ob.quat[i], toff);
           V3 tool_i_prev = st.obj_pos[i] + qrot(st.obj_quat[i], toff);
@@ -1211,7 +1223,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
       V3 panel_shift = c.motion * sc(J_PANEL_OFF + j);
       V3 span = (c.handle - pivot_w) + panel_shift;
       float span_n2 = dot(span, span);
-      for (int k = 0; k < 2; ++k) {
+      MW_UNROLL for (int k = 0; k < 2; ++k) {
         V3 center = k == 0 ? new_hand : knuckle;
         V3 cprev = k == 0 ? hand0 : knuckle_prev;
         float r_part = k == 0 ? 0.012f : 0.032f;
@@ -1259,7 +1271,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     // --- stop residual -> hand backoff ---
     V3 backoff = {0.0f, 0.0f, 0.0f};
     float residual_j[MAX_JOINT];
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       const JointCtx& c = jc[j];
       float q_free_clip = clip(q_free[j], c.range_lo, c.range_hi);
       float dq_realized = hooked[j] > 0.0f ? dq_j[j] : q_new_j[j] - q_free_clip;
@@ -1269,7 +1281,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
       residual_j[j] = residual;
       backoff = backoff - c.motion * (residual * c.lever);
     }
-    for (int j = 0; j < MAX_JOINT; ++j) backoff = backoff - jc[j].motion * jam_ex[j];
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) backoff = backoff - jc[j].motion * jam_ex[j];
     float bo_raw = norm3(backoff);
     float move_pre = norm3(new_hand - hand0);
     backoff = backoff * mn(1.0f, move_pre / mx(bo_raw, 1e-9f));
@@ -1285,13 +1297,13 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     float bt_allow = mx(bt_mag - MU_HAND * bo_n, 0.0f);
     float scale_bt = bo_n > 1e-9f ? bt_allow / mx(bt_mag, 1e-9f) : 1.0f;
     bool pin_round = false;
-    for (int j = 0; j < MAX_JOINT; ++j)
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j)
       pin_round = pin_round || ((fabsf(residual_j[j]) > 1e-12f) && (sc(J_HOOKABLE + j) > 0.0f));
     scale_bt = pin_round ? 1.0f : scale_bt;
     // dome slip on vertically pressed disc faces
     bool any_disc = false;
     V3 lat_sum = {0.0f, 0.0f, 0.0f};
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       const JointCtx& c = jc[j];
       bool dl = (fabsf(residual_j[j]) > 1e-12f) && !c.has_bar &&
                 (sc(J_HOOKABLE + j) == 0.0f) && (sc(J_PANEL + j) == 0.0f) &&
@@ -1310,7 +1322,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
 
     // --- rigid handle bars push the claw out ---
     V3 bar_corr = {0.0f, 0.0f, 0.0f};
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       const JointCtx& c = jc[j];
       V3 pt0 = c.handle + c.press_pt_off;
       float s_n = clip(dot(new_hand - pt0, c.press_fd), -c.face_radius, c.face_radius);
@@ -1330,7 +1342,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     new_hand = new_hand + bar_corr;
     // rigid wrap lock + vertical-bar collar
     V3 lock = {0.0f, 0.0f, 0.0f};
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       const JointCtx& c = jc[j];
       Q4 q_rot_new = axquat(sc.v3(J_AXIS + 3 * j), q_new_j[j]);
       V3 off_w_new = sel(c.is_hinge, qrot(q_rot_new, hook_hoff[j]), hook_hoff[j]);
@@ -1358,7 +1370,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     // knob-bar support: the claw parks on the rotating pointer bar's top
     bool knob_catch = false;
     float knob_z = -INFINITY;
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       const JointCtx& c = jc[j];
       bool knob_ok = c.is_hinge && (fabsf(sc(J_AXIS + 3 * j + 2)) > 0.9f) &&
                      (sc(J_HOOKABLE + j) == 0.0f) && (sc(J_PANEL + j) == 0.0f) &&
@@ -1373,7 +1385,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
       V3 pk3[3];
       pad_centers(new_hand, gripper, pk3[0], pk3[1]);
       pk3[2] = new_hand;
-      for (int k = 0; k < 3; ++k) {
+      MW_UNROLL for (int k = 0; k < 3; ++k) {
         float rx = pk3[k].x - piv.x, ry = pk3[k].y - piv.y;
         float proj = rx * dx + ry * dy;
         float px = rx - proj * dx, py = ry - proj * dy;
@@ -1386,7 +1398,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     new_hand.z = knob_catch ? mx(new_hand.z, knob_z) : new_hand.z;
 
     // --- joint velocities with inelastic press bounds ---
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       float q_new = q_new_j[j];
       float qv = (q_new - st.joint_q[j]) / dt;
       float cand = clip(qv, qv_lo_j[j], qv_hi_j[j]);
@@ -1397,14 +1409,14 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     }
     // finger yield under a soft plate press
     bool soft_any = false;
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       float gap_n_j = fabsf(dot(target - new_hand, jc[j].motion));
       soft_any = soft_any || ((soft_flag[j][0] || soft_flag[j][1]) && (gap_n_j > 0.06f));
     }
     float loaded_cap = mx(st.gripper - 0.0025f, 0.696f);
     gripper = soft_any ? mn(gripper, loaded_cap) : gripper;
   } else {
-    for (int j = 0; j < MAX_JOINT; ++j) {
+    MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
       joint_q_out[j] = st.joint_q[j];
       joint_v_out[j] = st.joint_v[j];
       hooked[j] = st.hooked[j];
@@ -1437,7 +1449,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
   out.hand_vel = hand_vel;
   out.gripper = gripper;
   out.gripper_vel = gripper_vel;
-  for (int i = 0; i < MAX_OBJ; ++i) {
+  MW_UNROLL for (int i = 0; i < MAX_OBJ; ++i) {
     out.obj_pos[i] = ob.pos[i];
     out.obj_quat[i] = ob.quat[i];
     out.obj_vel[i] = ob.vel[i];
@@ -1446,7 +1458,7 @@ MW_HD State substep(const Scene& sc, const State& st, V3 target, float effort) {
     out.attach_off[i] = attach_off[i];
     out.unanchored[i] = unanchored[i];
   }
-  for (int j = 0; j < MAX_JOINT; ++j) {
+  MW_UNROLL for (int j = 0; j < MAX_JOINT; ++j) {
     out.joint_q[j] = joint_q_out[j];
     out.joint_v[j] = joint_v_out[j];
     out.hooked[j] = hooked[j];

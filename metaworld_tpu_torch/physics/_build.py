@@ -1,8 +1,8 @@
 """Builds the physics kernel library from `csrc/` at first use.
 
-`build_cuda()` compiles `csrc/step_kernel.cu` once per substep variant with
-`nvcc` for sm_90a (the four objects compile in parallel) and links them
-into one shared library with a plain C interface, loaded with ctypes.
+`build_cuda()` compiles `csrc/step_kernel.cu` (one translation unit holding
+the kernel with all four substep variants) with `nvcc` for sm_90a into one
+shared library with a plain C interface, loaded with ctypes.
 `build_host()` compiles `csrc/host_step.cpp` with g++: the same substep
 arithmetic on the CPU, used only by the tests. Both write into
 `metaworld_tpu_torch/_build/` (ignored by git), keyed by a hash of the
@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O1", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
              "-Wall", "-Wdouble-promotion", "-Werror=double-promotion"]
-VARIANTS = (0, 1, 2, 3)
+CUDA_SOURCES = [CSRC / "substep.cuh", CSRC / "block_step.cuh",
+                CSRC / "step_kernel.cu"]
 
 # what `-Xptxas -v` printed for the last CUDA build in this process
 ptxas_log = ""
@@ -54,42 +55,33 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def compile_cuda(lib: pathlib.Path, flags=NVCC_FLAGS, csrc=CSRC) -> str:
+    """Compile and link `step_kernel.cu` of `csrc` with `flags` into `lib`;
+    returns what nvcc printed (the `-Xptxas -v` report)."""
+    nvcc = find_nvcc()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        tmp_lib = pathlib.Path(tmp) / lib.name
+        res = subprocess.run(
+            [nvcc, *flags, "-shared", "-I", str(csrc),
+             str(pathlib.Path(csrc) / "step_kernel.cu"), "-o", str(tmp_lib)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
+        os.replace(tmp_lib, lib)
+    return res.stdout + res.stderr
+
+
 def build_cuda() -> pathlib.Path:
     """Path of the kernel library, compiled now if not yet built."""
     global ptxas_log
-    sources = [CSRC / "substep.cuh", CSRC / "step_kernel.cu"]
-    lib = BUILD / f"libmw_step_{_key(sources, NVCC_FLAGS)}.so"
+    lib = BUILD / f"libmw_step_{_key(CUDA_SOURCES, NVCC_FLAGS)}.so"
     log = lib.with_suffix(".ptxas.txt")
     if lib.exists():
         ptxas_log = log.read_text() if log.exists() else ""
         return lib
-    nvcc = find_nvcc()
-    BUILD.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        procs = []
-        for v in VARIANTS:
-            obj = pathlib.Path(tmp) / f"step_v{v}.o"
-            cmd = [nvcc, *NVCC_FLAGS, f"-DMW_VARIANT={v}", "-I", str(CSRC),
-                   "-c", str(CSRC / "step_kernel.cu"), "-o", str(obj)]
-            procs.append((v, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        logs = []
-        for v, obj, p in procs:
-            out, _ = p.communicate()
-            logs.append(f"# variant {v}\n{out}")
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed for variant {v}:\n{out}")
-        tmp_lib = pathlib.Path(tmp) / lib.name
-        res = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp_lib),
-             *[str(o) for _, o, _ in procs]],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
-        ptxas_log = "\n".join(logs)
-        log.write_text(ptxas_log)
-        os.replace(tmp_lib, lib)
+    ptxas_log = compile_cuda(lib)
+    log.write_text(ptxas_log)
     return lib
 
 
@@ -98,7 +90,8 @@ def build_host() -> pathlib.Path:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
-    sources = [CSRC / "substep.cuh", CSRC / "host_step.cpp"]
+    sources = [CSRC / "substep.cuh", CSRC / "block_step.cuh",
+               CSRC / "host_step.cpp"]
     lib = BUILD / f"libmw_host_{_key(sources, GXX_FLAGS)}.so"
     if lib.exists():
         return lib

@@ -1,5 +1,5 @@
 """The physics control step on the GPU: wrapper of the hand-written CUDA
-kernel (`csrc/step_kernel.cu`, `csrc/substep.cuh`).
+kernel (`csrc/step_kernel.cu`, `csrc/block_step.cuh`, `csrc/substep.cuh`).
 
 Replaces the Pallas TPU kernel of the JAX package,
 `metaworld_tpu/physics/pallas_step.py` (`_make_kernel` built as
@@ -7,15 +7,15 @@ Replaces the Pallas TPU kernel of the JAX package,
 
 What bounds it on an H100: operations. Per env and control step the kernel
 moves about 524 bytes (63 state floats in and out, 4 control floats, one
-task id; the scene rows come from a per-task table that stays in L1/L2),
-while FRAME_SKIP substeps of the lane engine are a few thousand float32
-operations. What the design does about it: one thread per env over the
-packed (SIM_ROWS, N) state rows (coalesced loads and stores), a per-task
-scene table read through the read-only cache instead of 198 streamed rows
-per env, and four template instantiations that drop the feature families a
-block of envs lacks, launched once per run of same-variant blocks exactly
-as the Pallas build did. Register pressure (the 63-float state plus
-temporaries) is the known cost; see PERF.md for the ptxas counts.
+task id; the scene rows come from a per-task table), while FRAME_SKIP
+substeps of the lane engine are a few thousand float32 operations. What the
+design does about it: one thread per env over the packed (SIM_ROWS, N)
+state rows (coalesced loads and stores), a per-task scene table instead of
+198 streamed rows per env, and one launch per control step over a block
+table (`block_table`): each 128-env block runs the one of four template
+instantiations that drops the feature families its envs lack, and the
+blocks of all four variants share the SMs, heaviest variant first. See
+PERF.md for registers, occupancy and times.
 
 `control_step` launches the kernel for CUDA tensors (no fallback; a failed
 launch raises) and runs the plain PyTorch version, `plain_control_step`,
@@ -205,7 +205,7 @@ def unpack_sim_rows(rows: torch.Tensor, mocap) -> SimState:
 
 
 # ---------------------------------------------------------------------------
-# the per-task scene table and the variant runs
+# the per-task scene table, the variants and the block table
 # ---------------------------------------------------------------------------
 
 BLOCK = 128  # CUDA threads per block (kThreads in step_kernel.cu)
@@ -279,14 +279,73 @@ def variant_runs(variants, n: int, block: int = BLOCK) -> list:
     return out
 
 
+BLOCK_COLS = 5  # block-table columns (csrc/block_step.cuh BlockCol)
+
+
+@dataclasses.dataclass
+class BlockTable:
+    """The block table of one launch: one int32 row per block of `block`
+    envs, (variant, first env, env count, first task id, number of task
+    ids), heaviest variant first. `rows` lives on the launch's device;
+    `host` is the same table in numpy, where the wrapper reads sizes and
+    counts without touching the device."""
+
+    rows: torch.Tensor   # (n_blocks, BLOCK_COLS) int32
+    host: np.ndarray     # (n_blocks, BLOCK_COLS) int32
+    n: int               # envs of the batch the rows index
+    block: int
+
+    def __post_init__(self):
+        h = self.host
+        self.blocks_by_variant = [int((h[:, 0] == v).sum()) for v in range(4)]
+        # one past the greatest task id the blocks read
+        self.task_end = int((h[:, 3] + h[:, 4]).max(initial=0))
+
+    def select(self, keep) -> "BlockTable":
+        """The table of the rows where `keep` (a mask or indices) holds."""
+        host = np.ascontiguousarray(self.host[keep])
+        return BlockTable(torch.from_numpy(host).to(self.rows.device), host,
+                          self.n, self.block)
+
+
+def block_table(task_ids, task_features: np.ndarray, block: int = BLOCK,
+                device="cpu") -> BlockTable:
+    """Block table of N envs from their task ids (N,) and the per-task
+    features (n_tasks, 3): each block's variant is `block_variants`' over
+    its envs, its task range the least and greatest task id among them.
+    Rows are ordered heaviest variant first (v3, v2, v1, v0: the variants'
+    operation counts rise with the id), blocks in order within a variant."""
+    ids = np.asarray(task_ids, dtype=np.int64)
+    n = ids.shape[0]
+    variants = np.asarray(block_variants(task_features[ids], block), np.int64)
+    first = np.arange(variants.shape[0]) * block
+    lo = np.minimum.reduceat(ids, first) if n else first
+    hi = np.maximum.reduceat(ids, first) if n else first
+    host = np.stack([variants, first, np.minimum(block, n - first), lo,
+                     hi - lo + 1], axis=1).astype(np.int32)
+    host = np.ascontiguousarray(host[np.argsort(-variants, kind="stable")])
+    return BlockTable(torch.from_numpy(host).to(device), host, n, block)
+
+
 # ---------------------------------------------------------------------------
 # the kernel library and the wrapper
 # ---------------------------------------------------------------------------
 
-launches = 0        # kernel launches made by control_step (all variants)
-launches_by_variant = [0, 0, 0, 0]
+launches = 0                       # kernel launches made by launch_rows
+launches_by_variant = [0, 0, 0, 0]  # of those, the ones that ran the variant
+blocks_by_variant = [0, 0, 0, 0]    # blocks run per variant
 
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the kernel library's C interface on `lib`."""
+    lib.mw_step.restype = ctypes.c_int
+    lib.mw_step.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    lib.mw_step_info.restype = ctypes.c_int
+    lib.mw_step_info.argtypes = [ctypes.c_void_p] * 4
+    return lib
 
 
 def _load():
@@ -294,14 +353,21 @@ def _load():
     if _lib is None:
         from metaworld_tpu_torch.physics import _build
 
-        lib = ctypes.CDLL(str(_build.build_cuda()))
-        for v in range(4):
-            fn = getattr(lib, f"mw_step_v{v}")
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(_build.build_cuda())))
     return _lib
+
+
+def kernel_info(lib=None) -> dict:
+    """Registers and local (stack and spill) bytes per thread of the built
+    kernel, its shared memory per block, and the blocks an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = lib or _load()
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.mw_step_info(*[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"physics kernel: attribute query failed: cudaError {err}")
+    return dict(zip(("regs", "local_bytes", "shared_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def reset_counts():
@@ -309,6 +375,7 @@ def reset_counts():
     launches = 0
     for v in range(4):
         launches_by_variant[v] = 0
+        blocks_by_variant[v] = 0
 
 
 def _check(t: torch.Tensor, name, dtype, shape, device):
@@ -322,29 +389,39 @@ def _check(t: torch.Tensor, name, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def launch_rows(table_rows, task_ids, state_rows, ctl, runs) -> torch.Tensor:
-    """Run the kernel on packed rows: (SIM_ROWS, N) state and (4, N)
-    control in, (SIM_ROWS, N) state out."""
+def launch_rows(table_rows, task_ids, state_rows, ctl, blocks: BlockTable,
+                lib=None) -> torch.Tensor:
+    """Run the kernel on packed rows, one launch over the block table:
+    (SIM_ROWS, N) state and (4, N) control in, (SIM_ROWS, N) state out.
+    `lib` is another build of the kernel library (kernel_sweep.py); by
+    default the shipped one."""
     global launches
     dev = state_rows.device
     n = state_rows.shape[1]
-    _check(table_rows, "scene table", torch.float32,
-           (table_rows.shape[0], SC_ROWS), dev)
+    n_tasks = table_rows.shape[0]
+    _check(table_rows, "scene table", torch.float32, (n_tasks, SC_ROWS), dev)
     _check(task_ids, "task_ids", torch.int32, (n,), dev)
     _check(state_rows, "state rows", torch.float32, (SIM_ROWS, n), dev)
     _check(ctl, "control rows", torch.float32, (4, n), dev)
-    lib = _load()
+    _check(blocks.rows, "block table", torch.int32,
+           (blocks.host.shape[0], BLOCK_COLS), dev)
+    if blocks.block != BLOCK or blocks.n != n or blocks.task_end > n_tasks:
+        raise ValueError(f"block table of {blocks.n} envs in blocks of "
+                         f"{blocks.block} over {blocks.task_end} tasks does not "
+                         f"fit {n} envs in blocks of {BLOCK} over {n_tasks} tasks")
+    lib = lib or _load()
     out = torch.empty_like(state_rows)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for vid, start, count in runs:
-        err = getattr(lib, f"mw_step_v{vid}")(
-            table_rows.data_ptr(), task_ids.data_ptr(), state_rows.data_ptr(),
-            ctl.data_ptr(), out.data_ptr(), n, start, count, stream)
-        if err != 0:
-            raise RuntimeError(f"physics kernel v{vid} launch failed: "
-                               f"cudaError {err}")
-        launches += 1
-        launches_by_variant[vid] += 1
+    err = lib.mw_step(
+        blocks.rows.data_ptr(), blocks.host.shape[0],
+        table_rows.data_ptr(), task_ids.data_ptr(), state_rows.data_ptr(),
+        ctl.data_ptr(), out.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"physics kernel launch failed: cudaError {err}")
+    launches += 1
+    for v, c in enumerate(blocks.blocks_by_variant):
+        launches_by_variant[v] += c > 0
+        blocks_by_variant[v] += c
     return out
 
 
@@ -366,17 +443,18 @@ def plain_control_step(table: SceneTable, task_ids, sim: SimState,
 
 
 def control_step(table: SceneTable, task_ids, sim: SimState, action,
-                 runs=None) -> SimState:
+                 blocks: BlockTable | None = None) -> SimState:
     """One control step of N envs. `task_ids` (N,) int32 index the table;
-    `runs` are the (variant, start, count) launches, from
-    `variant_runs(block_variants(...))` (None: one all-features run). CUDA
-    tensors launch the kernel; CPU tensors run `plain_control_step`."""
+    `blocks` is the launch's `block_table` over them (None: every block
+    runs all features; building that table reads `task_ids` on the host).
+    CUDA tensors launch the kernel; CPU tensors run `plain_control_step`."""
     if sim.hand.device.type != "cuda":
         return plain_control_step(table, task_ids, sim, action)
-    n = sim.hand.shape[0]
-    if runs is None:
-        runs = [(3, 0, n)]
+    if blocks is None:
+        blocks = block_table(task_ids.cpu().numpy(),
+                             np.ones((table.rows.shape[0], 3), bool),
+                             device=task_ids.device)
     mocap, target, effort = _sim_and_ctl(table, task_ids, sim, action)
     ctl = torch.cat([target.T, effort[None]], dim=0).contiguous()
-    out = launch_rows(table.rows, task_ids, pack_sim_rows(sim), ctl, runs)
+    out = launch_rows(table.rows, task_ids, pack_sim_rows(sim), ctl, blocks)
     return unpack_sim_rows(out, mocap)

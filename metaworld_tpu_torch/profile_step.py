@@ -47,6 +47,19 @@ def _time_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def bench_engine(dev, n_envs) -> vector.FusedBatchedEnvs:
+    """MT10 as bench.py lays it out: one-hot ids, `n_envs` slots split
+    evenly over the ten tasks."""
+    bench = benchmarks.MT10(seed=0)
+    names = list(bench.train_classes.keys())
+    base, rem = divmod(n_envs, len(names))
+    counts = [base + (1 if i < rem else 0) for i in range(len(names))]
+    return vector.FusedBatchedEnvs(
+        [bench.train_classes[n] for n in names], counts,
+        [bench.goal_table(n) for n in names], goal_visible=True, one_hot=True,
+        device=dev)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--envs", type=int, default=131072)
@@ -57,14 +70,7 @@ def main():
     dev = torch.device("cuda")
     card = _card()
 
-    bench = benchmarks.MT10(seed=0)
-    names = list(bench.train_classes.keys())
-    base, rem = divmod(args.envs, len(names))
-    counts = [base + (1 if i < rem else 0) for i in range(len(names))]
-    eng = vector.FusedBatchedEnvs(
-        [bench.train_classes[n] for n in names], counts,
-        [bench.goal_table(n) for n in names], goal_visible=True, one_hot=True,
-        device=dev)
+    eng = bench_engine(dev, args.envs)
     state, _ = eng.reset()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -72,11 +78,16 @@ def main():
     for _ in range(3):
         state, _ = eng.step(state, act)
     env, sim = state.env, state.env.sim
-    table, ids, runs = eng.scene_table, eng.task_ids, eng.variant_runs
+    table, ids, blocks = eng.scene_table, eng.task_ids, eng.block_table
     mocap, target, effort = cuda_step._sim_and_ctl(table, ids, sim, act)
     ctl = torch.cat([target.T, effort[None]]).contiguous()
     rows = cuda_step.pack_sim_rows(sim)
-    out_rows = cuda_step.launch_rows(table.rows, ids, rows, ctl, runs)
+    cuda_step.reset_counts()
+    eng.step(state, act)
+    if cuda_step.launches != 1 or min(cuda_step.launches_by_variant) == 0:
+        raise SystemExit(f"expected one kernel launch running every variant per "
+                         f"step, got {cuda_step.launches} {cuda_step.launches_by_variant}")
+    out_rows = cuda_step.launch_rows(table.rows, ids, rows, ctl, blocks)
     offs = eng._offsets
 
     def guard():
@@ -101,7 +112,7 @@ def main():
     layers = {
         "weld_target": lambda: cuda_step._sim_and_ctl(table, ids, sim, act),
         "pack": lambda: cuda_step.pack_sim_rows(sim),
-        "kernel": lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, runs),
+        "kernel": lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, blocks),
         "unpack": lambda: cuda_step.unpack_sim_rows(out_rows, mocap),
         "guard": guard,
         "tails": tails,

@@ -116,12 +116,15 @@ class FusedBatchedEnvs:
             self._one_hot_block = None
             self.obs_dim = 39
 
-        # physics: per-task scene table + same-variant launch runs
+        # physics: per-task scene table, the same-variant runs of blocks and
+        # the block table of the kernel's one launch per step
         self.scene_table = cuda_step.build_scene_table(
             [s.scene for s in self.specs], dev)
         self.variant_runs = cuda_step.variant_runs(
             cuda_step.block_variants(self.scene_table.features[slot_task]),
             self.num_envs)
+        self.block_table = cuda_step.block_table(
+            slot_task, self.scene_table.features, device=dev)
         engine_lanes._reach_tables(dev)
 
         # reset table: one reset state + observation per (task, goal row)
@@ -182,7 +185,7 @@ class FusedBatchedEnvs:
         env = state.env
         if self.physics == "cuda":
             sim = cuda_step.control_step(self.scene_table, self.task_ids,
-                                         env.sim, actions, self.variant_runs)
+                                         env.sim, actions, self.block_table)
         else:
             sim = cuda_step.plain_control_step(self.scene_table, self.task_ids,
                                                env.sim, actions)

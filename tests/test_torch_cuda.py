@@ -35,7 +35,7 @@ def _engine(device, per_task, **kw):
 def test_kernel_matches_plain_every_variant(device):
     eng = _engine(device, 200)
     assert eng.physics == "cuda"
-    assert {v for v, _, _ in eng.variant_runs} == {0, 1, 2, 3}
+    assert min(eng.block_table.blocks_by_variant) > 0
     state, _ = eng.reset()
     sim = state.env.sim
     gen = torch.Generator(device=device)
@@ -44,15 +44,17 @@ def test_kernel_matches_plain_every_variant(device):
     for _ in range(5):
         act = torch.rand(eng.num_envs, 4, generator=gen, device=device) * 2 - 1
         got = cuda_step.control_step(eng.scene_table, eng.task_ids, sim, act,
-                                     eng.variant_runs)
+                                     eng.block_table)
         ref = cuda_step.plain_control_step(eng.scene_table, eng.task_ids, sim, act)
         torch.cuda.synchronize()
         for f in ref.__dataclass_fields__:
             err = (getattr(got, f) - getattr(ref, f)).abs().max().item()
             assert err <= 1e-4, f"{f} off by {err:.3e}"
         sim = ref
-    assert min(cuda_step.launches_by_variant) > 0
-    assert cuda_step.launches == 5 * len(eng.variant_runs)
+    assert cuda_step.launches == 5  # one launch per control step
+    assert cuda_step.launches_by_variant == [5] * 4
+    assert cuda_step.blocks_by_variant == [
+        5 * c for c in eng.block_table.blocks_by_variant]
 
 
 def test_wrapper_checks_inputs(device):
@@ -63,10 +65,20 @@ def test_wrapper_checks_inputs(device):
         cuda_step.launch_rows(eng.scene_table.rows, eng.task_ids.long(),
                               cuda_step.pack_sim_rows(state.env.sim),
                               torch.zeros(4, eng.num_envs, device=device),
-                              eng.variant_runs)
+                              eng.block_table)
+    # a block table whose task ids run past the scene table
+    past = cuda_step.block_table(np.full(eng.num_envs, 10), np.ones((11, 3), bool),
+                                 device=device)
+    with pytest.raises(ValueError):
+        cuda_step.launch_rows(eng.scene_table.rows, eng.task_ids,
+                              cuda_step.pack_sim_rows(state.env.sim),
+                              torch.zeros(4, eng.num_envs, device=device), past)
     out = cuda_step.control_step(eng.scene_table, eng.task_ids, state.env.sim,
-                                 act, eng.variant_runs)
+                                 act, eng.block_table)
     assert out.hand.device.type == "cuda"
+    # no table: every block runs all features, with the same result
+    out_all = cuda_step.control_step(eng.scene_table, eng.task_ids, state.env.sim, act)
+    assert torch.equal(out_all.hand, out.hand)
 
 
 def test_fused_step_kernel_matches_plain_physics_without_sync(device):

@@ -12,6 +12,10 @@ fields, finite differences over the 2.5 ms substep, at 1e-4 (gripper_vel,
 which is further divided by the 0.1 m opening, at 3e-4), as in
 test_torch_physics.py. The host build is test-only (the engine never calls
 it).
+
+A second case runs the kernel's own per-block code (`csrc/block_step.cuh`)
+over a block table at block = 8 on 20 envs per task, so that blocks
+straddle two tasks and every variant is dispatched.
 """
 
 import ctypes
@@ -40,11 +44,14 @@ def host_lib():
     lib.mw_host_step.restype = ctypes.c_int
     lib.mw_host_step.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 3
+    lib.mw_host_blocks.restype = ctypes.c_int
+    lib.mw_host_blocks.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 5 + [ctypes.c_int]
     return lib
 
 
-def _batch(near):
-    bench = tbench.MT10(seed=0, num_goals=3)
+def _batch(near, per_task=3):
+    bench = tbench.MT10(seed=0, num_goals=per_task)
     specs = [bench.train_classes[n] for n in MT10]
     table = cuda_step.build_scene_table([s.scene for s in specs], "cpu")
     envs, ids = [], []
@@ -71,14 +78,11 @@ def _sound(features, variant):
     return ok
 
 
-@pytest.mark.parametrize("mode", ["random", "seek"])
-@pytest.mark.parametrize("variant", [0, 1, 2, 3])
-def test_host_kernel_matches_plain(host_lib, variant, mode):
-    table, ids, env = _batch(near=mode == "seek")
+def _hold_against_plain(run, table, ids, env, mode, seed, mask, what):
+    """25 control steps, each from the plain version's state: `run(rows,
+    ctl, out)` fills the packed output rows, held on the envs in `mask`."""
     n = ids.shape[0]
-    ok = _sound(table.features[ids.numpy()], variant)
-    assert ok.sum() >= 3
-    rng = np.random.default_rng(variant)
+    rng = np.random.default_rng(seed)
     sim = env.sim
     for t in range(25):
         act = rng.uniform(-1, 1, (n, 4)).astype(np.float32)
@@ -93,17 +97,60 @@ def test_host_kernel_matches_plain(host_lib, variant, mode):
         ctl = torch.cat([target.T, effort[None]]).contiguous()
         rows = cuda_step.pack_sim_rows(sim).contiguous()
         out = torch.full_like(rows, float("nan"))
-        for i in np.nonzero(ok)[0]:
-            assert host_lib.mw_host_step(
-                variant, table.rows.data_ptr(), ids.data_ptr(),
-                rows.data_ptr(), ctl.data_ptr(), out.data_ptr(), n,
-                int(i), 1) == 0
+        run(rows, ctl, out)
         got = cuda_step.unpack_sim_rows(out, mocap)
-        mask = torch.from_numpy(ok)
         for field in ref.__dataclass_fields__:
             a = getattr(ref, field)[mask].double()
             b = getattr(got, field)[mask].double()
             err = (a - b).abs().max().item()
             assert err <= TOL.get(field, 1e-5) + 1e-6 * a.abs().max().item(), (
-                f"v{variant} {mode} t={t}: {field} off by {err:.3e}")
+                f"{what} {mode} t={t}: {field} off by {err:.3e}")
         sim = ref
+
+
+@pytest.mark.parametrize("mode", ["random", "seek"])
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+def test_host_kernel_matches_plain(host_lib, variant, mode):
+    table, ids, env = _batch(near=mode == "seek")
+    n = ids.shape[0]
+    ok = _sound(table.features[ids.numpy()], variant)
+    assert ok.sum() >= 3
+
+    def run(rows, ctl, out):
+        for i in np.nonzero(ok)[0]:
+            assert host_lib.mw_host_step(
+                variant, table.rows.data_ptr(), ids.data_ptr(),
+                rows.data_ptr(), ctl.data_ptr(), out.data_ptr(), n,
+                int(i), 1) == 0
+
+    _hold_against_plain(run, table, ids, env, mode, variant,
+                        torch.from_numpy(ok), f"v{variant}")
+
+
+def test_host_block_dispatch_matches_plain(host_lib):
+    """Random actions only: in the seek mode this batch reaches a knife-edge
+    button press where the host build and the plain version part by an ulp
+    of glibc against PyTorch arithmetic (as test_torch_physics.py sees with
+    JAX), whichever way the block is dispatched."""
+    table, ids, env = _batch(near=False, per_task=20)
+    n = ids.shape[0]
+    blocks = cuda_step.block_table(ids.numpy(), table.features, block=8)
+    assert min(blocks.blocks_by_variant) > 0
+    assert (blocks.host[:, 4] == 2).sum() >= 5  # blocks straddling two tasks
+
+    def run(rows, ctl, out):
+        assert host_lib.mw_host_blocks(
+            blocks.rows.data_ptr(), blocks.host.shape[0],
+            table.rows.data_ptr(), ids.data_ptr(), rows.data_ptr(),
+            ctl.data_ptr(), out.data_ptr(), n) == 0
+        # each env as the per-env entry point runs it in its block's variant
+        per_env = torch.full_like(out, float("nan"))
+        for v, first, count, _, _ in blocks.host:
+            assert host_lib.mw_host_step(
+                int(v), table.rows.data_ptr(), ids.data_ptr(), rows.data_ptr(),
+                ctl.data_ptr(), per_env.data_ptr(), n, int(first),
+                int(count)) == 0
+        assert torch.equal(out, per_env)
+
+    _hold_against_plain(run, table, ids, env, "random", 4,
+                        torch.ones(n, dtype=torch.bool), "blocks")

@@ -1,7 +1,7 @@
 """The PyTorch port's data layout against the JAX package: MT10 scene rows
 and goal tables (bit-equal), the packed lane rows of the physics kernel,
-per-block kernel variants, the kernel header's row offsets, and the state
-converter."""
+per-block kernel variants and the kernel's block table, the kernel header's
+row offsets, and the state converter."""
 
 import dataclasses
 import pathlib
@@ -134,6 +134,56 @@ def test_block_variants_match_pallas(n_envs, block):
     assert sum(c for _, _, c in runs) == n_envs
     assert [v for v, _, _ in runs] == [v for v, *_ in
                                        pallas_step._variant_runs(want)]
+
+
+LAYOUTS = [(30, 8), (200, 8), (131072, 128), (131072, 2048), (1000, 128)]
+
+
+def _layout_table(n_envs, block):
+    """bench.py's MT10 layout: per-slot task ids and their block table."""
+    base, rem = divmod(n_envs, 10)
+    ids = np.repeat(np.arange(10), [base + (i < rem) for i in range(10)])
+    feats = cuda_step.build_scene_table(
+        [tregistry.get_spec(n).scene for n in MT10], "cpu").features
+    return ids, cuda_step.block_table(ids, feats, block)
+
+
+@pytest.mark.parametrize("n_envs,block", LAYOUTS)
+def test_block_table_covers_every_env_once(n_envs, block):
+    _, bt = _layout_table(n_envs, block)
+    seen = np.zeros(n_envs, int)
+    for _, first, count, _, _ in bt.host:
+        assert first % block == 0 and count == min(block, n_envs - first)
+        seen[first:first + count] += 1
+    assert (seen == 1).all()
+    assert bt.rows.dtype == torch.int32 and bt.rows.shape == (
+        -(-n_envs // block), cuda_step.BLOCK_COLS)
+
+
+@pytest.mark.parametrize("n_envs,block", LAYOUTS)
+def test_block_table_variants_match_pallas(n_envs, block):
+    _, bt = _layout_table(n_envs, block)
+    n_pad = -(-n_envs // block) * block
+    want = pallas_step.block_variants(_bench_layout_scene(n_envs), n_pad, block)
+    assert [want[f // block] for f in bt.host[:, 1]] == list(bt.host[:, 0])
+
+
+@pytest.mark.parametrize("n_envs,block", LAYOUTS)
+def test_block_table_heaviest_variant_first(n_envs, block):
+    _, bt = _layout_table(n_envs, block)
+    v, first = bt.host[:, 0], bt.host[:, 1]
+    assert (np.diff(v) <= 0).all()
+    assert all((np.diff(first[v == k]) > 0).all() for k in range(4))
+    assert bt.blocks_by_variant == [int((v == k).sum()) for k in range(4)]
+
+
+@pytest.mark.parametrize("n_envs,block", LAYOUTS)
+def test_block_table_task_range_covers_task_ids(n_envs, block):
+    ids, bt = _layout_table(n_envs, block)
+    for _, first, count, lo, k in bt.host:
+        own = ids[first:first + count]
+        assert lo == own.min() and lo + k - 1 == own.max()
+    assert bt.task_end == ids.max() + 1
 
 
 def test_kernel_header_row_offsets():
