@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its numbers on its own line; any failure exits
-non-zero before the result line:
+Two paths, MT10 and MT25, each laid out as bench.py lays out MT10: N =
+131072 slots split evenly over the tasks, one-hot ids. Phases, each
+printing its numbers on its own line; any failure exits non-zero before
+the result line:
 
   1. the card: name and power limit (nvidia-smi), torch's device name;
   2. build of the physics kernel from metaworld_tpu_torch/csrc with nvcc
@@ -11,11 +13,11 @@ non-zero before the result line:
      reports, and the kernel's registers and local (stack and spill) bytes
      per thread, its shared memory per block and the blocks an SM holds at
      once;
-  3. kernel vs its plain PyTorch version on MT10 scenes at N = 131072 laid
-     out as bench.py lays them out: 5 control steps, each from the plain
-     version's state, max abs error per state field <= 1e-4; one launch
-     per control step, and blocks of every variant v0..v3 run;
-  4. the fused MT10 step (metaworld_tpu_torch.vector.FusedBatchedEnvs) at
+  3. MT10: kernel vs its plain PyTorch version at N = 131072, 5 control
+     steps, each from the plain version's state, max abs error per state
+     field <= 1e-4; one launch per control step, and blocks of every
+     variant v0..v3 run;
+  4. MT10: the fused step (metaworld_tpu_torch.vector.FusedBatchedEnvs) at
      N = 131072 for 520 steps, so every slot crosses autoreset at
      max_episode_steps=500: finite outputs, episode lengths wrap to 1, the
      kernel launched exactly once per step with blocks of every variant, no
@@ -23,15 +25,30 @@ non-zero before the result line:
      (torch.cuda.set_sync_debug_mode("error")); and on a small batch, the
      fused step with the kernel against the fused step with the plain
      physics;
-  5. timings with CUDA events: kernel ms per control step as one launch
-     and, in turns with it, as the same kernel launched once per
+  5. MT10 timings with CUDA events: kernel ms per control step as one
+     launch and, in turns with it, as the same kernel launched once per
      same-variant run (the earlier seven-launch schedule); each variant's
      blocks as one launch; plain-version ms, fused step ms and
      env-steps/s, each beside the card and its power limit, with the
-     kernel's bound and roofline share.
+     kernel's bound and roofline share;
+  6. MT25: kernel vs plain at N = 131072 in a random mode and a seek mode
+     (half the slots start 3 cm above their object's reset anchor or above
+     the object position their reset observation reports, steer to it and
+     close the grip there), 25 control steps each from the plain
+     version's state; the max abs error per state field by variant and
+     per task (<= 1e-4), and per task the slots with an attached object, a
+     hooked joint or an unanchored object, so that the grasp and hook
+     branches are seen to run;
+  7. MT25: the fused step with the kernel against the plain physics on 3
+     slots per task, then 520 fused steps at N = 131072 with the checks of
+     phase 4 (observations (131072, 64));
+  8. MT25 timings: the kernel per control step as one launch, each
+     variant's blocks as one launch with its bound over the MT25 envs, the
+     plain version, and the fused MT25 step in ms and env-steps/s.
 
-The line before the last is the per-kernel JSON record; the last line is
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+The line before the last is the per-kernel JSON record, one record per
+variant and path; the last line is {"ok": true, "device": {...}}. The
+script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ N_ENVS = 131072
 FUSED_STEPS = 520
 MAX_EPISODE_STEPS = 500
 PHYS_STEPS = 5
+MT25_PHYS_STEPS = 25
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # H100 SXM lane operations per second: 132 SMs x 128 float32 lanes x
 # 1.98 GHz. The published 67 TFLOP/s counts a fused multiply-add as two
@@ -55,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # each of its operations takes one lane slot.
 F32_OPS_PER_S = 33.5e12
 TPU_KERNEL = "metaworld_tpu/physics/pallas_step.py:281"  # _make_kernel
+FLAGS_COUNTED = ("attached", "hooked", "unanchored")
 
 
 def fail(msg):
@@ -82,23 +101,26 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def bench_engine(device, n_envs, **kw):
-    from metaworld_tpu_torch import benchmarks, vector
+def task_names(path: str) -> list:
+    from metaworld_tpu_torch import benchmarks
 
-    bench = benchmarks.MT10(seed=0)
-    names = list(bench.train_classes.keys())
-    base, rem = divmod(n_envs, len(names))
-    counts = [base + (1 if i < rem else 0) for i in range(len(names))]
-    return vector.FusedBatchedEnvs(
-        [bench.train_classes[n] for n in names], counts,
-        [bench.goal_table(n) for n in names], goal_visible=True, one_hot=True,
-        device=device, **kw)
+    return {"mt10": benchmarks.MT10_LIST, "mt25": benchmarks.MT25_LIST}[path]
 
 
-def ops_per_env_substep(variant: int) -> int:
+def bench_engine(device, n_envs, path="mt10", **kw):
+    """bench.py's layout of the task set `path` (profile_step.bench_engine)."""
+    from metaworld_tpu_torch import profile_step
+
+    return profile_step.bench_engine(device, n_envs, path, **kw)
+
+
+def ops_per_env_substep(path: str) -> dict:
     """Elementwise float operations one env's substep performs in the plain
-    version with this variant's features (each lane op counts once), counted
-    on the CPU with a dispatch hook over a one-env batch of each sound task."""
+    version with each variant's features (each lane op counts once),
+    counted on the CPU with a dispatch hook over a one-env batch of every
+    task of `path` the variant is sound for: {variant: {task: count}}. The
+    plain version masks its branches instead of taking them, so a variant's
+    count should not depend on the task."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from metaworld_tpu_torch.physics import cuda_step, engine_lanes
@@ -119,35 +141,295 @@ def ops_per_env_substep(variant: int) -> int:
                 Count.n += 1
             return out
 
-    eng = bench_engine("cpu", 10, physics="torch")
-    flags = cuda_step.VARIANTS[variant]
+    names = task_names(path)
+    eng = bench_engine("cpu", len(names), path, physics="torch")
     feats = eng.scene_table.features
-    want = [i for i in range(10)
-            if (flags["with_objects"] or not feats[i, 0])
-            and (flags["with_joints"] or not feats[i, 1])
-            and (flags["with_hand_boxes"] or not feats[i, 2])]
     state, _ = eng.reset()
-    total = 0
-    for i in want:
-        sl = slice(i, i + 1)
-        sim = state.env.sim.map(lambda t: t[sl])
-        ids = eng.task_ids[sl]
-        rows = eng.scene_table.rows[ids.long()].T
-        sc = engine_lanes._NS(**cuda_step._build_lanes(rows, cuda_step.SC_SPEC))
-        st = engine_lanes.sim_lanes(sim)
-        tgt = engine_lanes._v3(sim.hand)
-        Count.n = 0
-        with Count():
-            engine_lanes._substep(sc, st, tgt, sim.gripper, **flags)
-        total = max(total, Count.n)
-    return total
+    out = {}
+    for variant, flags in enumerate(cuda_step.VARIANTS):
+        out[variant] = {}
+        for i, name in enumerate(names):
+            if ((not flags["with_objects"] and feats[i, 0])
+                    or (not flags["with_joints"] and feats[i, 1])
+                    or (not flags["with_hand_boxes"] and feats[i, 2])):
+                continue
+            sl = slice(i, i + 1)
+            sim = state.env.sim.map(lambda t: t[sl])
+            ids = eng.task_ids[sl]
+            rows = eng.scene_table.rows[ids.long()].T
+            sc = engine_lanes._NS(**cuda_step._build_lanes(rows, cuda_step.SC_SPEC))
+            st = engine_lanes.sim_lanes(sim)
+            tgt = engine_lanes._v3(sim.hand)
+            Count.n = 0
+            with Count():
+                engine_lanes._substep(sc, st, tgt, sim.gripper, **flags)
+            out[variant][name] = Count.n
+    return out
+
+
+def env_variants(blocks, n, dev) -> torch.Tensor:
+    """(n,) variant each env runs in, from the block table."""
+    v = np.empty(n, np.int64)
+    for variant, first, count, _, _ in blocks.host:
+        v[first:first + count] = variant
+    return torch.from_numpy(v).to(dev)
+
+
+def field_errors(got, ref, n):
+    """{field: (n,) max abs error per env}, NaN counted as infinite."""
+    out = {}
+    for f in ref.__dataclass_fields__:
+        d = (getattr(got, f) - getattr(ref, f)).abs().reshape(n, -1)
+        out[f] = torch.nan_to_num(d, nan=float("inf")).amax(dim=1)
+    return out
+
+
+def seek_actions(act, sim, target, seek):
+    """Seeking slots steer toward their target and close the grip within
+    3 cm of it (tests/test_torch_kernel_host.py's seek mode)."""
+    d = target - sim.hand
+    steer = torch.clamp(d * 60.0 + 0.3 * act[:, :3], -1.0, 1.0)
+    grip = torch.where(torch.linalg.vector_norm(d, dim=1) < 0.03, 1.0, act[:, 3])
+    return torch.where(seek[:, None], torch.cat([steer, grip[:, None]], 1), act)
+
+
+def hold_mt25(eng, dev, gen, names):
+    """Phase 6: kernel vs plain on the MT25 layout, random and seek modes.
+    Returns the max abs error by variant over both modes."""
+    from metaworld_tpu_torch.physics import cuda_step, engine
+    from metaworld_tpu_torch.types import SimState
+
+    table, ids, blocks = eng.scene_table, eng.task_ids, eng.block_table
+    n, n_tasks = eng.num_envs, len(names)
+    variant = env_variants(blocks, n, dev)
+    task_variants = [sorted({int(v) for v, f, c, lo, k in blocks.host
+                             if lo <= t < lo + k}) for t in range(n_tasks)]
+    fields = list(SimState.__dataclass_fields__)
+    err_by_variant = [0.0] * 4
+    slot = torch.arange(n, device=dev)
+    for mode in ("random", "seek"):
+        state, obs = eng.reset()
+        sim = state.env.sim
+        # seeking slots: every other slot; half of them seek the object's
+        # reset anchor (obj_init_pos, as the tests do), the other half the
+        # position the reset observation reports (the grasp point: a
+        # faucet's handle, the stick, the wrench's handle)
+        seek = (slot % 2 == 0) & (mode == "seek")
+        target = torch.where((slot % 4 == 2)[:, None], obs[:, 4:7],
+                             state.env.obj_init_pos[:, 0])
+        if mode == "seek":
+            goal = target + torch.tensor([0.0, 0.0, 0.03], device=dev)
+            tcp = torch.tensor(engine.TCP_OFFSET, device=dev)
+            sim = sim.replace(hand=torch.where(seek[:, None], goal, sim.hand),
+                              mocap=torch.where(seek[:, None], goal - tcp, sim.mocap))
+        by_task = torch.zeros(len(fields), n_tasks, device=dev)
+        by_variant = torch.zeros(len(fields), 4, device=dev)
+        ever = torch.zeros(len(FLAGS_COUNTED), n, dtype=torch.bool, device=dev)
+        cuda_step.reset_counts()
+        for t in range(MT25_PHYS_STEPS):
+            act = torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
+            if mode == "seek":
+                act = seek_actions(act, sim, target, seek)
+            got = cuda_step.control_step(table, ids, sim, act, blocks)
+            ref = cuda_step.plain_control_step(table, ids, sim, act)
+            errs = field_errors(got, ref, n)
+            for k, f in enumerate(fields):
+                by_task[k].scatter_reduce_(0, ids.long(), errs[f], "amax")
+                by_variant[k].scatter_reduce_(0, variant, errs[f], "amax")
+            for k, f in enumerate(FLAGS_COUNTED):
+                ever[k] |= (getattr(ref, f) != 0).any(dim=1)
+            sim = ref
+        if cuda_step.launches != MT25_PHYS_STEPS:
+            fail(f"mt25 {mode}: {cuda_step.launches} launches for "
+                 f"{MT25_PHYS_STEPS} control steps")
+        end = torch.stack([(getattr(sim, f) != 0).any(dim=1) for f in FLAGS_COUNTED])
+
+        def count(m):
+            return torch.zeros(n_tasks, device=dev).index_add_(
+                0, ids.long(), m.float()).long().tolist()
+
+        ended = [count(end[k]) for k in range(len(FLAGS_COUNTED))]
+        seen = [count(ever[k]) for k in range(len(FLAGS_COUNTED))]
+        by_task, by_variant = by_task.cpu().numpy(), by_variant.cpu().numpy()
+        for k, f in enumerate(fields):
+            print(f"[mt25-vs-plain {mode}] {f}: max abs err by variant "
+                  + " ".join(f"v{v} {by_variant[k, v]:.3e}" for v in range(4)))
+        for t, name in enumerate(names):
+            worst = int(np.argmax(by_task[:, t]))
+            print(f"[mt25-vs-plain {mode}] task {t} {name} (v"
+                  f"{','.join(map(str, task_variants[t]))}): max abs err "
+                  f"{by_task[worst, t]:.3e} "
+                  f"({fields[worst] if by_task[worst, t] > 0 else '-'}); slots attached/"
+                  f"hooked/unanchored at the end {ended[0][t]}/{ended[1][t]}/"
+                  f"{ended[2][t]}, at any step {seen[0][t]}/{seen[1][t]}/"
+                  f"{seen[2][t]}")
+        worst = float(by_task.max())
+        totals = [sum(s) for s in seen]
+        print(f"[mt25-vs-plain {mode}] {MT25_PHYS_STEPS} steps x {n} envs: max abs "
+              f"err {worst:.3e}; slots attached/hooked/unanchored at any step "
+              f"{totals}")
+        if not worst <= 1e-4:
+            t, k = np.unravel_index(np.argmax(by_task.T), by_task.T.shape)
+            fail(f"mt25 {mode}: kernel disagrees with its plain version on "
+                 f"{names[t]}: {fields[k]} {by_task[k, t]:.3e}")
+        if mode == "seek" and not (totals[0] > 0 and totals[1] > 0):
+            fail(f"mt25 seek: the grasp and hook branches did not run ({totals})")
+        for v in range(4):
+            err_by_variant[v] = max(err_by_variant[v], float(by_variant[:, v].max()))
+    return err_by_variant
+
+
+def fused_small(dev, gen, path, n):
+    """The fused step with the kernel against the fused step with the plain
+    physics, 12 steps of `n` slots from one shared state."""
+    from metaworld_tpu_torch import vector
+
+    kw = dict(max_episode_steps=4, task_select="pseudorandom")
+    small_k = bench_engine(dev, n, path, **kw)
+    small_p = bench_engine(dev, n, path, physics="torch", **kw)
+    goal_idx = torch.arange(n, device=dev, dtype=torch.int32) % 50
+    sk, _ = small_k.reset(goal_idx)
+    worst = {}
+    for t in range(12):
+        act = torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
+        nk, ok = small_k.step(sk, act)
+        _, op = small_p.step(sk, act)
+        for k in vector.OUT_KEYS:
+            a, b = ok[k].double(), op[k].double()
+            worst[k] = max(worst.get(k, 0.0), ((a - b).abs() / (1.0 + b.abs())).max().item())
+        sk = nk
+    return worst
+
+
+def fused_main(eng, dev, gen, obs_dim, tag):
+    """520 fused steps at full width with every check of the main path;
+    returns (kernel launches that ran each variant, the actions)."""
+    from metaworld_tpu_torch.physics import cuda_step
+
+    n, blocks = eng.num_envs, eng.block_table
+    state, obs = eng.reset()
+    if tuple(obs.shape) != (n, obs_dim):
+        fail(f"{tag}: reset obs shape {tuple(obs.shape)}")
+    for _ in range(2):  # warm-up (first calls fill the per-device caches)
+        eng.step(state, torch.rand(n, 4, generator=gen, device=dev) * 2 - 1)
+    torch.cuda.synchronize()
+    state, _ = eng.reset()
+    acts = [torch.rand(n, 4, generator=gen, device=dev) * 2 - 1 for _ in range(8)]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    wrapped = torch.zeros((), dtype=torch.bool, device=dev)
+    crossed = torch.zeros(n, dtype=torch.bool, device=dev)
+    dones = torch.zeros((), dtype=torch.int64, device=dev)
+    prev_done = torch.zeros(n, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    cuda_step.reset_counts()
+    t0 = time.time()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(FUSED_STEPS):
+            state, out = eng.step(state, acts[t % len(acts)])
+            for k in ("obs", "reward", "episode_return", "grasp_reward",
+                      "in_place_reward", "obj_to_target"):
+                finite = finite & torch.isfinite(out[k]).all()
+            wrapped = wrapped | (prev_done & (out["episode_length"] == 1)).any()
+            crossed = crossed | (prev_done & (out["episode_length"] == 1))
+            finite = finite & ~(prev_done & (out["episode_length"] != 1)).any()
+            dones = dones + out["done"].sum()
+            prev_done = out["done"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = list(cuda_step.launches_by_variant)
+    blocks_run = list(cuda_step.blocks_by_variant)
+    print(f"[{tag}] {FUSED_STEPS} steps x {n} envs in {wall:.2f} s wall; "
+          f"dones {int(dones)}; slots that crossed autoreset "
+          f"{int(crossed.sum())}; launches {cuda_step.launches}, running each "
+          f"variant {launches}; blocks by variant {blocks_run}")
+    if not bool(finite):
+        fail(f"{tag}: non-finite outputs, or an episode length that did not wrap to 1")
+    if not bool(wrapped) or int(dones) < n or not bool(crossed.all()):
+        fail(f"{tag}: autoreset not crossed by every slot (dones {int(dones)}, "
+             f"crossed {int(crossed.sum())})")
+    if cuda_step.launches != FUSED_STEPS or launches != [FUSED_STEPS] * 4:
+        fail(f"{tag}: kernel launches {cuda_step.launches} {launches}: expected "
+             f"one per step, each running blocks of every variant")
+    if blocks_run != [FUSED_STEPS * c for c in blocks.blocks_by_variant]:
+        fail(f"{tag}: blocks by variant {blocks_run} != {FUSED_STEPS} x "
+             f"{blocks.blocks_by_variant}")
+    if tuple(out["obs"].shape) != (n, obs_dim):
+        fail(f"{tag}: obs shape {tuple(out['obs'].shape)}")
+    return launches, acts
+
+
+def variant_records(eng, dev, act, ops, path, launches, errs, card):
+    """Each variant's blocks as one launch, its plain version on the same
+    envs, and its bound over the envs it runs: the `kernels` records."""
+    from metaworld_tpu_torch.physics import cuda_step
+
+    table, ids, blocks = eng.scene_table, eng.task_ids, eng.block_table
+    state, _ = eng.reset()
+    sim = state.env.sim
+    mocap, target, effort = cuda_step._sim_and_ctl(table, ids, sim, act)
+    ctl = torch.cat([target.T, effort[None]]).contiguous()
+    rows = cuda_step.pack_sim_rows(sim).contiguous()
+    variant = env_variants(blocks, eng.num_envs, dev)
+    bytes_per_env = (2 * cuda_step.SIM_ROWS + 4) * 4 + 4
+    records = []
+    for v in range(4):
+        vblocks = blocks.select(blocks.host[:, 0] == v)
+        n_v = int(vblocks.host[:, 2].sum())
+        k_ms = time_ms(lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, vblocks), 50)
+        idx = torch.nonzero(variant == v).flatten()
+        sim_v = sim.map(lambda t: t[idx])
+        p_ms = time_ms(lambda: cuda_step.plain_control_step(
+            table, ids[idx], sim_v, act[idx]), 3, 1)
+        b_bytes = (n_v * bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        b_ops = ops[v] * 5 * n_v / F32_OPS_PER_S * 1e3
+        records.append({
+            "name": f"step_kernel_v{v}", "path": path, "route": "cuda",
+            "source": "metaworld_tpu_torch/csrc/step_kernel.cu",
+            "replaces": TPU_KERNEL, "launches": launches[v],
+            "max_abs_err": errs[v], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "library_ms": None,
+        })
+        print(f"[{path} kernel v{v}] {card}: {n_v} envs in {len(vblocks.host)} "
+              f"blocks, one launch {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+              f"{max(b_bytes, b_ops) * 1e3:.2f} us")
+    return records
+
+
+def control_step_bound(eng, ops):
+    """(bytes ms, operations ms) of one control step over the layout."""
+    from metaworld_tpu_torch.physics import cuda_step
+
+    h = eng.block_table.host
+    n_by_v = [int(h[h[:, 0] == v, 2].sum()) for v in range(4)]
+    bytes_per_env = (2 * cuda_step.SIM_ROWS + 4) * 4 + 4
+    total_ops = sum(ops[v] * 5 * n_by_v[v] for v in range(4))
+    return ((eng.num_envs * bytes_per_env + eng.scene_table.rows.numel() * 4)
+            / HBM_BYTES_PER_S * 1e3, total_ops / F32_OPS_PER_S * 1e3)
+
+
+def count_ops(path):
+    """Per-variant operation count of `path`, printed with its spread over
+    the path's tasks."""
+    per_task = ops_per_env_substep(path)
+    ops = {}
+    for v, counts in per_task.items():
+        ops[v] = max(counts.values())
+        spread = sorted(set(counts.values()))
+        print(f"[{path} ops] v{v}: {ops[v]} elementwise ops per env per substep "
+              f"over {len(counts)} tasks" + ("" if len(spread) == 1 else
+                                            f" (counts move: {spread})"))
+    return ops
 
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     from metaworld_tpu_torch.physics import _build, cuda_step
-    from metaworld_tpu_torch import vector
 
     dev = torch.device("cuda")
     card = card_line()
@@ -164,7 +446,7 @@ def main():
         if line.strip():
             print(f"[ptxas] {line.strip()}")
 
-    # ---- 3. kernel vs plain at full width ----
+    # ---- 3. kernel vs plain at full width (MT10) ----
     eng = bench_engine(dev, N_ENVS, max_episode_steps=MAX_EPISODE_STEPS)
     blocks, runs = eng.block_table, eng.variant_runs
     info = cuda_step.kernel_info()
@@ -174,10 +456,7 @@ def main():
     print(f"[blocks] one launch of {blocks.host.shape[0]} blocks, by variant "
           f"{blocks.blocks_by_variant} (heaviest first); earlier schedule: "
           f"{len(runs)} launches " + ", ".join(f"v{v}@{s}+{c}" for v, s, c in runs))
-    env_variant = np.empty(N_ENVS, np.int64)
-    for v, first, count, _, _ in blocks.host:
-        env_variant[first:first + count] = v
-    env_variant = torch.from_numpy(env_variant).to(dev)
+    env_variant = env_variants(blocks, N_ENVS, dev)
     table, ids = eng.scene_table, eng.task_ids
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -191,9 +470,7 @@ def main():
         ref = cuda_step.plain_control_step(table, ids, sim, act)
         torch.cuda.synchronize()
         worst, field = 0.0, None
-        for f in ref.__dataclass_fields__:
-            d = (getattr(got, f) - getattr(ref, f)).abs().reshape(N_ENVS, -1)
-            d = torch.nan_to_num(d, nan=float("inf")).amax(dim=1)
+        for f, d in field_errors(got, ref, N_ENVS).items():
             for v in range(4):
                 err_by_variant[v] = max(err_by_variant[v],
                                         d[env_variant == v].max().item())
@@ -212,20 +489,7 @@ def main():
           f"{['%.3e' % e for e in err_by_variant]}")
 
     # ---- 4a. the fused step, kernel vs plain physics, small batch ----
-    small_k = bench_engine(dev, 60, max_episode_steps=4, task_select="pseudorandom")
-    small_p = bench_engine(dev, 60, max_episode_steps=4, task_select="pseudorandom",
-                           physics="torch")
-    goal_idx = torch.arange(60, device=dev, dtype=torch.int32) % 50
-    sk, _ = small_k.reset(goal_idx)
-    worst = {}
-    for t in range(12):
-        act = torch.rand(60, 4, generator=gen, device=dev) * 2 - 1
-        nk, ok = small_k.step(sk, act)
-        _, op = small_p.step(sk, act)
-        for k in vector.OUT_KEYS:
-            a, b = ok[k].double(), op[k].double()
-            worst[k] = max(worst.get(k, 0.0), ((a - b).abs() / (1.0 + b.abs())).max().item())
-        sk = nk
+    worst = fused_small(dev, gen, "mt10", 60)
     bad = {k: v for k, v in worst.items() if not v <= 1e-4}
     print(f"[fused-small] kernel vs plain physics, 12 steps x 60 envs: worst "
           f"{max(worst.values()):.3e}")
@@ -233,54 +497,8 @@ def main():
         fail(f"fused step with the kernel disagrees with the plain physics: {bad}")
 
     # ---- 4b. the main path: 520 fused steps at full width ----
-    state, obs = eng.reset()
-    if tuple(obs.shape) != (N_ENVS, 49):
-        fail(f"reset obs shape {tuple(obs.shape)}")
     gen.manual_seed(2)
-    for _ in range(2):  # warm-up (first calls fill the per-device caches)
-        eng.step(state, torch.rand(N_ENVS, 4, generator=gen, device=dev) * 2 - 1)
-    torch.cuda.synchronize()
-    state, _ = eng.reset()
-    acts = [torch.rand(N_ENVS, 4, generator=gen, device=dev) * 2 - 1 for _ in range(8)]
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    wrapped = torch.zeros((), dtype=torch.bool, device=dev)
-    dones = torch.zeros((), dtype=torch.int64, device=dev)
-    prev_done = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
-    torch.cuda.synchronize()
-    cuda_step.reset_counts()
-    t0 = time.time()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for t in range(FUSED_STEPS):
-            state, out = eng.step(state, acts[t % len(acts)])
-            for k in ("obs", "reward", "episode_return", "grasp_reward",
-                      "in_place_reward", "obj_to_target"):
-                finite = finite & torch.isfinite(out[k]).all()
-            wrapped = wrapped | (prev_done & (out["episode_length"] == 1)).any()
-            finite = finite & ~(prev_done & (out["episode_length"] != 1)).any()
-            dones = dones + out["done"].sum()
-            prev_done = out["done"]
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    main_launches = list(cuda_step.launches_by_variant)
-    main_blocks = list(cuda_step.blocks_by_variant)
-    print(f"[fused] {FUSED_STEPS} steps x {N_ENVS} envs in {wall:.2f} s wall; "
-          f"dones {int(dones)}; launches {cuda_step.launches}, running each "
-          f"variant {main_launches}; blocks by variant {main_blocks}")
-    if not bool(finite):
-        fail("non-finite outputs, or an episode length that did not wrap to 1")
-    if not bool(wrapped) or int(dones) < N_ENVS:
-        fail(f"autoreset not crossed by every slot (dones {int(dones)})")
-    if cuda_step.launches != FUSED_STEPS or main_launches != [FUSED_STEPS] * 4:
-        fail(f"kernel launches {cuda_step.launches} {main_launches}: expected "
-             f"one per step, each running blocks of every variant")
-    if main_blocks != [FUSED_STEPS * c for c in blocks.blocks_by_variant]:
-        fail(f"blocks by variant {main_blocks} != {FUSED_STEPS} x "
-             f"{blocks.blocks_by_variant}")
-    if tuple(out["obs"].shape) != (N_ENVS, 49):
-        fail(f"obs shape {tuple(out['obs'].shape)}")
+    main_launches, acts = fused_main(eng, dev, gen, 49, "fused")
 
     # ---- 5. timings ----
     state, _ = eng.reset()
@@ -309,15 +527,9 @@ def main():
     wrapper_ms = time_ms(lambda: cuda_step.control_step(table, ids, sim, act, blocks), 20)
     fused_ms = time_ms(lambda: eng.step(state, act), 20)
 
-    ops = {v: ops_per_env_substep(v) for v in range(4)}
-    n_by_v = [int(blocks.host[blocks.host[:, 0] == v, 2].sum()) for v in range(4)]
-    bytes_per_env = (2 * cuda_step.SIM_ROWS + 4) * 4 + 4
-    total_ops = sum(ops[v] * 5 * n_by_v[v] for v in range(4))
-    bound_bytes_ms = (N_ENVS * bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = total_ops / F32_OPS_PER_S * 1e3
+    ops = count_ops("mt10")
+    bound_bytes_ms, bound_ops_ms = control_step_bound(eng, ops)
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    print(f"[ops] elementwise ops per env per substep by variant {ops}; "
-          f"bytes per env per control step {bytes_per_env}")
     print(f"[schedule] {card}: kernel per control step, in turns "
           + ", ".join(f"{name} {ms:.4f} ms" for name, ms in turns)
           + f": one launch {kernel_ms:.4f} ms against {len(runs)} launches "
@@ -331,30 +543,58 @@ def main():
           f"roofline share {bound_ms / kernel_ms:.3f}")
     print(f"[time] {card}: fused MT10 step {fused_ms:.3f} ms, "
           f"{N_ENVS / fused_ms * 1e3:.0f} env-steps/s at N={N_ENVS}")
+    kernels = variant_records(eng, dev, act, ops, "mt10", main_launches,
+                              err_by_variant, card)
+    del eng, state, sim, rows, ctl, acts
 
-    kernels = []
-    for v in range(4):
-        vblocks = blocks.select(blocks.host[:, 0] == v)
-        n_v = n_by_v[v]
-        k_ms = time_ms(lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, vblocks), 50)
-        idx = torch.nonzero(env_variant == v).flatten()
-        sim_v = sim.map(lambda t: t[idx])
-        p_ms = time_ms(lambda: cuda_step.plain_control_step(
-            table, ids[idx], sim_v, act[idx]), 3, 1)
-        b_bytes = (n_v * bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
-        b_ops = ops[v] * 5 * n_v / F32_OPS_PER_S * 1e3
-        kernels.append({
-            "name": f"step_kernel_v{v}", "route": "cuda",
-            "source": "metaworld_tpu_torch/csrc/step_kernel.cu",
-            "replaces": TPU_KERNEL, "launches": main_launches[v],
-            "max_abs_err": err_by_variant[v], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "library_ms": None,
-        })
-        print(f"[kernel v{v}] {card}: {n_v} envs in {len(vblocks.host)} blocks, "
-              f"one launch {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
-              f"{max(b_bytes, b_ops) * 1e3:.2f} us")
+    # ---- 6. MT25: kernel vs plain, random and seek ----
+    names = task_names("mt25")
+    eng25 = bench_engine(dev, N_ENVS, "mt25", max_episode_steps=MAX_EPISODE_STEPS)
+    counts = [int(c) for c in np.bincount(eng25.task_ids.cpu().numpy())]
+    print(f"[mt25 blocks] {len(names)} tasks, slots per task {counts}; one launch "
+          f"of {eng25.block_table.host.shape[0]} blocks, by variant "
+          f"{eng25.block_table.blocks_by_variant}")
+    gen.manual_seed(3)
+    err25 = hold_mt25(eng25, dev, gen, names)
+    print(f"[mt25-vs-plain] max err by variant over both modes "
+          f"{['%.3e' % e for e in err25]}")
+
+    # ---- 7. MT25: fused step, small batch and main path ----
+    worst = fused_small(dev, gen, "mt25", 75)
+    bad = {k: v for k, v in worst.items() if not v <= 1e-4}
+    print(f"[mt25 fused-small] kernel vs plain physics, 12 steps x 75 envs: "
+          f"worst {max(worst.values()):.3e}")
+    if bad:
+        fail(f"mt25: fused step with the kernel disagrees with the plain physics: {bad}")
+    gen.manual_seed(4)
+    launches25, acts25 = fused_main(eng25, dev, gen, 39 + len(names), "mt25 fused")
+
+    # ---- 8. MT25 timings ----
+    table25, ids25, blocks25 = eng25.scene_table, eng25.task_ids, eng25.block_table
+    state, _ = eng25.reset()
+    sim = state.env.sim
+    act = acts25[0]
+    mocap, target, effort = cuda_step._sim_and_ctl(table25, ids25, sim, act)
+    ctl = torch.cat([target.T, effort[None]]).contiguous()
+    rows = cuda_step.pack_sim_rows(sim).contiguous()
+    kernel25_ms = time_ms(lambda: cuda_step.launch_rows(
+        table25.rows, ids25, rows, ctl, blocks25), 50)
+    plain25_ms = time_ms(lambda: cuda_step.plain_control_step(
+        table25, ids25, sim, act), 3, 1)
+    fused25_ms = time_ms(lambda: eng25.step(state, act), 20)
+    ops25 = count_ops("mt25")
+    b_bytes, b_ops = control_step_bound(eng25, ops25)
+    print(f"[mt25 time] {card}: kernel {kernel25_ms:.4f} ms per control step "
+          f"(one launch, N={N_ENVS}); plain torch physics {plain25_ms:.2f} ms; "
+          f"bound {max(b_bytes, b_ops) * 1e3:.2f} us "
+          f"({'operations' if b_ops >= b_bytes else 'bytes'}; bytes "
+          f"{b_bytes * 1e3:.2f} us); roofline share "
+          f"{max(b_bytes, b_ops) / kernel25_ms:.3f}")
+    print(f"[mt25 time] {card}: fused MT25 step {fused25_ms:.3f} ms, "
+          f"{N_ENVS / fused25_ms * 1e3:.0f} env-steps/s at N={N_ENVS}; fused MT10 "
+          f"step {fused_ms:.3f} ms in this run")
+    kernels += variant_records(eng25, dev, act, ops25, "mt25", launches25,
+                               err25, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Benchmark construction (numpy), copied from the JAX package's
-`benchmarks.py` for the task sets whose modules are ported: MT1 and MT10.
+`benchmarks.py` for the task sets whose modules are ported: MT1, MT10 and
+MT25.
 
 Reimplements the reference's Benchmark ABC and task generation
 (ref metaworld/__init__.py:55-395, env_dict.py:217-465) with one key
@@ -30,6 +31,14 @@ MT10_LIST = [
     "reach-v3", "push-v3", "pick-place-v3", "door-open-v3", "drawer-open-v3",
     "drawer-close-v3", "button-press-topdown-v3", "peg-insert-side-v3",
     "window-open-v3", "window-close-v3",
+]
+
+MT25_LIST = MT10_LIST + [
+    "coffee-pull-v3", "pick-out-of-hole-v3", "disassemble-v3",
+    "pick-place-wall-v3", "basketball-v3", "stick-pull-v3",
+    "button-press-wall-v3", "faucet-open-v3", "door-lock-v3", "lever-pull-v3",
+    "sweep-into-v3", "faucet-close-v3", "coffee-button-v3",
+    "button-press-topdown-wall-v3", "dial-turn-v3",
 ]
 
 # Rejection-resampling conditions per task (the reference's `while bad:
@@ -157,3 +166,7 @@ def _mt(names: list[str], seed=None, num_goals: int = _N_GOALS) -> Benchmark:
 
 def MT10(seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
     return _mt(MT10_LIST, seed, num_goals)
+
+
+def MT25(seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
+    return _mt(MT25_LIST, seed, num_goals)

@@ -62,6 +62,7 @@ class SpecConsts:
     obs_hi_visible: torch.Tensor
     obs_lo_hidden: torch.Tensor
     obs_hi_hidden: torch.Tensor
+    report_off: torch.Tensor | None  # (MAX_OBJ, 3) or None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +87,10 @@ class TaskSpec:
     obj_quat0: np.ndarray = None
     quat_style: tuple = ("xyzw", "xyzw")
     quat_joint: tuple = (-1, -1)
+    # reported-position offset from the physics COM per object slot
+    # (MAX_OBJ, 3): the reference reports the body frame origin, which for
+    # bodies with offset geoms (coffee-pull's mug) lies off the COM
+    obj_report_off: np.ndarray = None
     _cache: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 
@@ -114,7 +119,9 @@ class TaskSpec:
                 rand_low=f32(self.rand_low), rand_high=f32(self.rand_high),
                 quat0=f32(quat0),
                 obs_lo_visible=f32(lo_v), obs_hi_visible=f32(hi_v),
-                obs_lo_hidden=f32(lo_h), obs_hi_hidden=f32(hi_h))
+                obs_lo_hidden=f32(lo_h), obs_hi_hidden=f32(hi_h),
+                report_off=(None if self.obj_report_off is None
+                            else f32(self.obj_report_off)))
         return self._cache[key]
 
 
@@ -162,7 +169,13 @@ def live_obj_quat(spec: TaskSpec, state: EnvState) -> torch.Tensor:
 
 
 def default_obs_fn(spec: TaskSpec, state: EnvState):
-    return state.sim.obj_pos, live_obj_quat(spec, state)
+    """Objects report their body-frame position (COM plus the task's
+    `obj_report_off`) and live orientation."""
+    pos = state.sim.obj_pos
+    off = spec.consts(pos.device).report_off
+    if off is not None:
+        pos = pos + off
+    return pos, live_obj_quat(spec, state)
 
 
 def curr_obs18(spec: TaskSpec, state: EnvState) -> torch.Tensor:
@@ -349,6 +362,51 @@ def gripper_caging_reward(spec: TaskSpec, state: EnvState, action, obj_pos,
             sigmoid="long_tail")
         caging_and_gripping = (caging_and_gripping + reach) / 2
     return caging_and_gripping
+
+
+def zero_y(v):
+    """(n, 3) with the y column zeroed: the reference's [x, 0, z] vectors."""
+    return torch.stack([v[:, 0], torch.zeros_like(v[:, 0]), v[:, 2]], dim=-1)
+
+
+def gripper_caging_reward_grip(spec: TaskSpec, state: EnvState, action,
+                               obj_pos, obj_radius: float,
+                               grip_margin_add: float, xz_margin: float,
+                               caging_thresh: float = 0.95):
+    """The caging variant of push-back, sweep, sweep-into and soccer (ref
+    sawyer_sweep_v3.py:150-250): a tighter y-gripping band (bounds
+    (obj_radius, obj_radius + grip_margin_add)), and caging AVERAGED with
+    gripping instead of their hamacher product. Margins read the live pads."""
+    pad_success_margin = 0.05
+    grip_success_margin = obj_radius + grip_margin_add
+    tcp = state.sim.hand
+    left_pad, right_pad = engine.pad_positions(state.sim)
+    delta_y_left = left_pad[:, 1] - obj_pos[:, 1]
+    delta_y_right = obj_pos[:, 1] - right_pad[:, 1]
+    right_margin = torch.abs(torch.abs(obj_pos[:, 1] - right_pad[:, 1])
+                             - pad_success_margin)
+    left_margin = torch.abs(torch.abs(obj_pos[:, 1] - left_pad[:, 1])
+                            - pad_success_margin)
+
+    def tol(x, hi, margin):
+        return reward_utils.tolerance(x, bounds=(obj_radius, hi), margin=margin,
+                                      sigmoid="long_tail")
+
+    right_caging = tol(delta_y_right, pad_success_margin, right_margin)
+    left_caging = tol(delta_y_left, pad_success_margin, left_margin)
+    right_gripping = tol(delta_y_right, grip_success_margin, right_margin)
+    left_gripping = tol(delta_y_left, grip_success_margin, left_margin)
+    y_caging = reward_utils.hamacher_product(right_caging, left_caging)
+    y_gripping = reward_utils.hamacher_product(right_gripping, left_gripping)
+
+    tcp_obj_xz = norm(zero_y(tcp) - zero_y(obj_pos))
+    xz_margin_v = norm(zero_y(state.obj_init_pos[:, 0]) - zero_y(state.init_tcp)) - xz_margin
+    x_z_caging = reward_utils.tolerance(
+        tcp_obj_xz, bounds=(0, xz_margin), margin=xz_margin_v,
+        sigmoid="long_tail")
+    caging = reward_utils.hamacher_product(y_caging, x_z_caging)
+    gripping = torch.where(caging > caging_thresh, y_gripping, 0.0)
+    return (caging + gripping) / 2
 
 
 def touching_main_object(state: EnvState):

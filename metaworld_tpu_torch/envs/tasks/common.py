@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from metaworld_tpu_torch.envs.core import EvalOut, live_obj_quat
+from metaworld_tpu_torch.physics import maths
 from metaworld_tpu_torch.types import MAX_OBJ, N_EXTRAS
 
 # Masked resampling rounds of `sample_until`. Goal-table rows already pass
@@ -53,6 +54,13 @@ def vec3(x, y, z):
     return torch.stack([t if isinstance(t, torch.Tensor)
                         else torch.full_like(like, t) for t in (x, y, z)],
                        dim=-1)
+
+
+def rotate_const(q, v):
+    """A constant 3-vector `v` (Python numbers) rotated by quaternions
+    q (n, 4): maths.quat_rotate on a vector filled on q's device."""
+    vec = torch.stack([torch.full_like(q[:, 0], float(c)) for c in v], dim=-1)
+    return maths.quat_rotate(q, vec)
 
 
 def eval_out(reward, success, near_object=0.0, grasp_success=0.0,

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 from metaworld_tpu_torch.envs import registry
-from metaworld_tpu_torch.envs.core import TaskSpec, norm, touching_main_object
+from metaworld_tpu_torch.envs.core import TaskSpec, norm, touching_main_object, zero_y
 from metaworld_tpu_torch.envs.scene_builder import FreeObj, build_scene
 from metaworld_tpu_torch.envs.tasks import common
 from metaworld_tpu_torch.physics import engine
@@ -40,10 +40,6 @@ def _reset(spec: TaskSpec, rand, gen):
     )
 
 
-def _xz(v):
-    return common.vec3(v[:, 0], 0.0, v[:, 2])
-
-
 def pick_place_caging(state, action, obj):
     """The task-specific caging override (ref :180-248)."""
     pad_success_margin = 0.05
@@ -68,8 +64,8 @@ def pick_place_caging(state, action, obj):
     )
     y_caging = reward_utils.hamacher_product(left_caging, right_caging)
 
-    tcp_obj_xz = norm(_xz(tcp) - _xz(obj))
-    xz_margin = (norm(_xz(state.obj_init_pos[:, 0]) - _xz(state.init_tcp))
+    tcp_obj_xz = norm(zero_y(tcp) - zero_y(obj))
+    xz_margin = (norm(zero_y(state.obj_init_pos[:, 0]) - zero_y(state.init_tcp))
                  - x_z_success_margin)
     x_z_caging = reward_utils.tolerance(
         tcp_obj_xz, bounds=(0, x_z_success_margin),

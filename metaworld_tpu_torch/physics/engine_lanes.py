@@ -129,11 +129,14 @@ class _x:
     @staticmethod
     def div(a, b):
         """a / b rounded once. PyTorch's CUDA kernels divide a tensor by a
-        Python number as a multiply by its reciprocal (two roundings); a
-        0-dim tensor on the same device keeps the true division, as the
-        CPU, XLA and the CUDA kernel compute it."""
+        Python number as a multiply by its reciprocal, and on every device
+        a Python number divided by a tensor is the tensor's reciprocal times
+        the number (two roundings each); a 0-dim tensor on the same device
+        keeps the true division, as XLA and the CUDA kernel compute it."""
         if _is_t(a) and a.is_cuda and not _is_t(b):
             return a / a.new_full((), b)
+        if _is_t(b) and not _is_t(a):
+            return b.new_full((), a) / b
         return a / b
 
     @staticmethod
@@ -652,7 +655,7 @@ def _substep(sc, st, target, effort, *, with_objects=True, with_joints=True,
     )
     vel_h = tuple(vel_h[k] + acc[k] * dt for k in range(3))
     vn = _norm3(vel_h)
-    vel_h = _scale3(vel_h, _x.minimum(1.0, HAND_VMAX / _x.maximum(vn, 1e-9)))
+    vel_h = _scale3(vel_h, _x.minimum(1.0, _x.div(HAND_VMAX, _x.maximum(vn, 1e-9))))
     new_hand = tuple(hand0[k] + vel_h[k] * dt for k in range(3))
 
     # --- hand vs static geometry (engine.py:334-392 hand_clear) ---
@@ -1495,7 +1498,8 @@ def _substep(sc, st, target, effort, *, with_objects=True, with_joints=True,
             dq = _x.where(grabbing, 0.0, dq)
             hi = _x.where(grabbing, _BIG_QV, hi)
             lo = _x.where(grabbing, -_BIG_QV, lo)
-            dq = _x.clip(dq, -4.0 * dt / sc.lever[j], 4.0 * dt / sc.lever[j])
+            dq = _x.clip(dq, _x.div(-4.0 * dt, sc.lever[j]),
+                         _x.div(4.0 * dt, sc.lever[j]))
             # finite weld load (engine.py:1259-1278)
             gap_n = _x.abs(_dot3(_sub3(target, new_hand), motion[j]))
             dq_budget = _x.where(
@@ -1640,7 +1644,7 @@ def _substep(sc, st, target, effort, *, with_objects=True, with_joints=True,
             off_lat = _sub3(off_lat, _scale3(bar_w, _dot3(off_lat, bar_w)))
             lat_n = _norm3(off_lat)
             off_lat = _scale3(off_lat, _x.minimum(
-                1.0, _COLLAR_CAP / _x.maximum(lat_n, 1e-9)))
+                1.0, _x.div(_COLLAR_CAP, _x.maximum(lat_n, 1e-9))))
             cc = _sub3(_add3(handle_new, off_lat), new_hand)
             cc = _sub3(cc, _scale3(motion[j], _dot3(cc, motion[j])))
             cc = _sub3(cc, _scale3(bar_w, _dot3(cc, bar_w)))

@@ -1,9 +1,10 @@
-"""Where the fused MT10 step spends its time on the GPU.
+"""Where the fused multi-task step spends its time on the GPU.
 
-    python -m metaworld_tpu_torch.profile_step [--envs 131072] [--reps 20]
+    python -m metaworld_tpu_torch.profile_step [--tasks mt10|mt25]
+        [--envs 131072] [--reps 20]
 
 Builds the engine as bench.py lays out MT10 (one-hot ids, counts split
-evenly over the ten tasks), then times each layer of
+evenly over the tasks of the task set, MT10 by default), then times each layer of
 `vector.FusedBatchedEnvs.step` with CUDA events on the same inputs: the
 weld target, state packing, the physics kernel, unpacking, the non-finite
 guard, the per-task observation/reward tails and NEXT_STEP autoreset, and
@@ -47,21 +48,26 @@ def _time_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def bench_engine(dev, n_envs) -> vector.FusedBatchedEnvs:
-    """MT10 as bench.py lays it out: one-hot ids, `n_envs` slots split
-    evenly over the ten tasks."""
-    bench = benchmarks.MT10(seed=0)
+TASK_SETS = {"mt10": benchmarks.MT10, "mt25": benchmarks.MT25}
+
+
+def bench_engine(dev, n_envs, tasks="mt10", **kw) -> vector.FusedBatchedEnvs:
+    """A task set as bench.py lays out MT10: one-hot ids, `n_envs` slots
+    split evenly over its tasks (the remainder to the first); `kw` goes to
+    FusedBatchedEnvs."""
+    bench = TASK_SETS[tasks](seed=0)
     names = list(bench.train_classes.keys())
     base, rem = divmod(n_envs, len(names))
     counts = [base + (1 if i < rem else 0) for i in range(len(names))]
     return vector.FusedBatchedEnvs(
         [bench.train_classes[n] for n in names], counts,
         [bench.goal_table(n) for n in names], goal_visible=True, one_hot=True,
-        device=dev)
+        device=dev, **kw)
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--tasks", choices=sorted(TASK_SETS), default="mt10")
     ap.add_argument("--envs", type=int, default=131072)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -70,7 +76,7 @@ def main():
     dev = torch.device("cuda")
     card = _card()
 
-    eng = bench_engine(dev, args.envs)
+    eng = bench_engine(dev, args.envs, args.tasks)
     state, _ = eng.reset()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -121,7 +127,7 @@ def main():
     }
     ms = {k: _time_ms(f, args.reps) for k, f in layers.items()}
     for k, v in ms.items():
-        print(f"[layer] {card}: {k} {v:.4f} ms")
+        print(f"[layer] {card}: {args.tasks} {k} {v:.4f} ms")
 
     # device busy share and kernel count of the step, from torch.profiler
     prof_info = {}
@@ -148,7 +154,8 @@ def main():
         print(f"[profile] {card}: {prof_info}")
     except Exception as exc:  # the profiler may not reach the device here
         print(f"[profile] unavailable: {exc!r}")
-    print(json.dumps({"card": card, "envs": eng.num_envs, "layer_ms": ms,
+    print(json.dumps({"card": card, "tasks": args.tasks, "envs": eng.num_envs,
+                      "layer_ms": ms,
                       "profile": prof_info}))
 
 

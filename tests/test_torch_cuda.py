@@ -24,16 +24,18 @@ def device():
     return torch.device("cuda")
 
 
-def _engine(device, per_task, **kw):
-    bench = benchmarks.MT10(seed=0, num_goals=5)
+def _engine(device, per_task, bench=benchmarks.MT10, **kw):
+    bench = bench(seed=0, num_goals=5)
     names = list(bench.train_classes.keys())
     return vector.FusedBatchedEnvs(
         [bench.train_classes[n] for n in names], [per_task] * len(names),
         [bench.goal_table(n) for n in names], one_hot=True, device=device, **kw)
 
 
-def test_kernel_matches_plain_every_variant(device):
-    eng = _engine(device, 200)
+@pytest.mark.parametrize("bench", [benchmarks.MT10, benchmarks.MT25],
+                         ids=["mt10", "mt25"])
+def test_kernel_matches_plain_every_variant(device, bench):
+    eng = _engine(device, 200, bench)
     assert eng.physics == "cuda"
     assert min(eng.block_table.blocks_by_variant) > 0
     state, _ = eng.reset()

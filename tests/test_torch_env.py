@@ -37,8 +37,8 @@ def _benches():
     return jbench.MT10(seed=0, num_goals=N_GOALS), tbench.MT10(seed=0, num_goals=N_GOALS)
 
 
-def _jax_reset(name):
-    jb, _ = _benches()
+def _jax_reset(name, jb=None):
+    jb = jb or _benches()[0]
     spec = jb.train_classes[name]
     rows = jnp.asarray(jb.goal_table(name))
     keys = jax.random.split(jax.random.PRNGKey(0), rows.shape[0])
@@ -54,10 +54,10 @@ def _assert_tree_close(a, b, atol, path=""):
                                rtol=0, atol=atol, err_msg=path)
 
 
-@pytest.mark.parametrize("name", MT10)
-def test_env_reset_matches_jax(name):
-    state_j, obs_j = _jax_reset(name)
-    _, tb = _benches()
+def check_reset(name, jb, tb):
+    """The port's reset of every goal row of `tb` against the JAX reset of
+    the same rows of `jb`."""
+    state_j, obs_j = _jax_reset(name, jb)
     spec = tb.train_classes[name]
     rows = torch.from_numpy(tb.goal_table(name).astype(np.float32))
     state_t, obs_t = tcore.env_reset(spec, rows, 1.0)
@@ -65,9 +65,14 @@ def test_env_reset_matches_jax(name):
     np.testing.assert_allclose(obs_t.numpy(), np.asarray(obs_j), rtol=0, atol=1e-6)
 
 
-def _perturbed_states(name, seed=0):
+@pytest.mark.parametrize("name", MT10)
+def test_env_reset_matches_jax(name):
+    check_reset(name, *_benches())
+
+
+def _perturbed_states(name, seed=0, jb=None):
     """JAX reset states (N_GOALS x 4 slots) with seeded perturbations."""
-    state, _ = _jax_reset(name)
+    state, _ = _jax_reset(name, jb)
     state = jax.tree.map(lambda x: jnp.concatenate([x] * 4), state)
     d = convert.as_dict(state)
     n = d["path_length"].shape[0]
@@ -93,12 +98,12 @@ def _perturbed_states(name, seed=0):
     return d, rng.uniform(-1, 1, (n, 4)).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", MT10)
-def test_post_step_matches_jax(name):
-    jb, tb = _benches()
-    d, act = _perturbed_states(name)
+def check_post_step(name, jb, tb):
+    """The port's step tail against the JAX `post_step` on perturbed JAX
+    reset states of `name`."""
+    d, act = _perturbed_states(name, jb=jb)
     spec_j = jb.train_classes[name]
-    state_j, _ = _jax_reset(name)
+    state_j, _ = _jax_reset(name, jb)
     state_j = jax.tree.map(lambda x: jnp.concatenate([x] * 4), state_j)
     rebuilt = state_j.replace(
         sim=state_j.sim.replace(**{k: jnp.asarray(v) for k, v in d["sim"].items()}),
@@ -126,14 +131,17 @@ def test_post_step_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", MT10)
-def test_reset_ignores_generator_on_goal_rows(name):
-    """Every goal-table row passes its task's rejection test, so the masked
-    resampling rounds of `sample_until` never replace one and a reset is a
-    pure function of its goal row -- what the fused engine's reset table
+def test_post_step_matches_jax(name):
+    check_post_step(name, *_benches())
+
+
+def check_reset_ignores_generator(spec, table):
+    """Every row of the goal table passes the task's rejection test, so the
+    masked resampling rounds of `sample_until` never replace one and a reset
+    is a pure function of its goal row -- what the fused engine's reset table
     relies on."""
-    _, tb = _benches()
-    spec = tb.train_classes[name]
-    rows = torch.from_numpy(tbench.MT10(seed=42).goal_table(name).astype(np.float32))
+    name = spec.name
+    rows = torch.from_numpy(table.astype(np.float32))
     module = importlib.import_module(
         "metaworld_tpu_torch.envs.tasks." + name.replace("-", "_")[:-3] + "_v3")
     good = getattr(module, "good", None)
@@ -150,3 +158,10 @@ def test_reset_ignores_generator_on_goal_rows(name):
         outs.append((convert.as_dict(st), obs.numpy()))
     _assert_tree_close(outs[0][0], outs[1][0], 0.0)
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("name", MT10)
+def test_reset_ignores_generator_on_goal_rows(name):
+    _, tb = _benches()
+    check_reset_ignores_generator(tb.train_classes[name],
+                                  tbench.MT10(seed=42).goal_table(name))

@@ -37,13 +37,7 @@ STATE_TOL = dict(hand_vel=1e-4, obj_vel=1e-4, obj_angvel=1e-4, joint_v=1e-4,
 @pytest.fixture(scope="module")
 def engines():
     jb, tb = jbench.MT10(seed=0, num_goals=5), tbench.MT10(seed=0, num_goals=5)
-    je = jvector.FusedBatchedEnvs(
-        [jb.train_classes[n] for n in MT10], [3] * 10,
-        [jb.goal_table(n) for n in MT10], physics="lanes", **KW)
-    te = tvector.FusedBatchedEnvs(
-        [tb.train_classes[n] for n in MT10], [3] * 10,
-        [tb.goal_table(n) for n in MT10], physics="torch", device="cpu", **KW)
-    return je, te, jax.jit(je._step_impl)
+    return make_engines(jb, tb, MT10, 3)
 
 
 def _compare_state(sj, st, where):
@@ -78,26 +72,47 @@ def _compare_out(oj, ot, where):
                                        err_msg=f"{where}: {k}")
 
 
-def test_fused_step_matches_jax(engines):
-    je, te, step_j = engines
+def make_engines(jb, tb, names, per_task):
+    """The JAX and the port's fused engines over `names`, `per_task` slots
+    each, and the JAX step jitted."""
+    je = jvector.FusedBatchedEnvs(
+        [jb.train_classes[n] for n in names], [per_task] * len(names),
+        [jb.goal_table(n) for n in names], physics="lanes", **KW)
+    te = tvector.FusedBatchedEnvs(
+        [tb.train_classes[n] for n in names], [per_task] * len(names),
+        [tb.goal_table(n) for n in names], physics="torch", device="cpu", **KW)
+    return je, te, jax.jit(je._step_impl)
+
+
+def check_fused(je, te, step_j, n_goals, steps=20):
+    """Pinned goal rows on both sides; the first half of the steps restart
+    the port from the JAX state, the rest run free. Returns the port's
+    states after each step."""
     rng = np.random.default_rng(0)
-    gidx = rng.integers(0, 5, te.num_envs).astype(np.int32)
+    gidx = rng.integers(0, n_goals, te.num_envs).astype(np.int32)
     sj, oj = je._reset_jit(jax.random.PRNGKey(0), jnp.asarray(gidx))
     st, ot = te.reset(torch.from_numpy(gidx))
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-6)
     _compare_state(sj, st, "reset")
     resets = 0
-    for t in range(20):
+    states = []
+    for t in range(steps):
         act = rng.uniform(-1, 1, (te.num_envs, 4)).astype(np.float32)
-        if t < 10:  # restart from the shared state
+        if t < steps // 2:  # restart from the shared state
             st = convert.fused_from_dict(convert.as_dict(sj), "cpu")
         resets += int(np.asarray(sj.pending_reset).sum())
         sj, out_j = step_j(sj, jnp.asarray(act))
         st, out_t = te.step(st, torch.from_numpy(act))
-        where = f"t={t} ({'restart' if t < 10 else 'free'})"
+        where = f"t={t} ({'restart' if t < steps // 2 else 'free'})"
         _compare_out(out_j, out_t, where)
         _compare_state(sj, st, where)
+        states.append(st)
     assert resets >= 2 * te.num_envs  # every slot crossed autoreset
+    return states
+
+
+def test_fused_step_matches_jax(engines):
+    check_fused(*engines, n_goals=5)
 
 
 def test_episode_length_wraps_after_done(engines):

@@ -27,7 +27,7 @@ def test_port_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"vector.py", "physics/cuda_step.py", "physics/engine_lanes.py",
             "envs/core.py", "convert.py"} <= names
-    assert len([p for p in MODULES if p.name.endswith("_v3.py")]) == 10
+    assert len([p for p in MODULES if p.name.endswith("_v3.py")]) == 28
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: p.relative_to(PKG).as_posix())
@@ -43,6 +43,7 @@ def test_importing_the_port_loads_no_jax():
         "import metaworld_tpu_torch.vector, metaworld_tpu_torch.convert\n"
         "import metaworld_tpu_torch.benchmarks as b\n"
         "b.MT10(seed=0, num_goals=2)\n"
+        "b.MT25(seed=0, num_goals=2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'metaworld_tpu')]\n"
         "assert not bad, bad\n"

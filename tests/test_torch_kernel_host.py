@@ -31,6 +31,8 @@ from metaworld_tpu_torch.physics import _build, cuda_step
 from metaworld_tpu_torch.types import tree_map
 
 MT10 = tbench.MT10_LIST
+MT25_NEW = [n for n in tbench.MT25_LIST if n not in MT10] + [
+    "assembly-v3", "stick-push-v3", "button-press-v3"]
 TCP_OFFSET = (0.0044, 0.0015, -0.0498)
 TOL = dict(hand_vel=1e-4, obj_vel=1e-4, obj_angvel=1e-4, joint_v=1e-4,
            gripper_vel=3e-4)
@@ -50,13 +52,25 @@ def host_lib():
     return lib
 
 
-def _batch(near, per_task=3):
-    bench = tbench.MT10(seed=0, num_goals=per_task)
-    specs = [bench.train_classes[n] for n in MT10]
+def _batch(near, per_task=3, names=None):
+    """Reset states of `per_task` slots of every MT10 task (MT10 goals), or
+    of each task in `names` (MT25 goals, or MT1 for a task outside MT25),
+    with the scene table and the per-slot task ids."""
+    suite = (tbench.MT10 if names is None else tbench.MT25)(
+        seed=0, num_goals=per_task)
+    names = names or MT10
+
+    def bench_of(n):
+        if n in suite.train_classes:
+            return suite
+        return tbench.MT1(n, seed=0, num_goals=per_task)
+
+    specs = [bench_of(n).train_classes[n] for n in names]
     table = cuda_step.build_scene_table([s.scene for s in specs], "cpu")
     envs, ids = [], []
     for k, spec in enumerate(specs):
-        goals = torch.from_numpy(bench.goal_table(spec.name).astype(np.float32))
+        goals = torch.from_numpy(
+            bench_of(spec.name).goal_table(spec.name).astype(np.float32))
         st, _ = env_reset(spec, goals, 1.0)
         envs.append(st)
         ids += [k] * goals.shape[0]
@@ -108,10 +122,9 @@ def _hold_against_plain(run, table, ids, env, mode, seed, mask, what):
         sim = ref
 
 
-@pytest.mark.parametrize("mode", ["random", "seek"])
-@pytest.mark.parametrize("variant", [0, 1, 2, 3])
-def test_host_kernel_matches_plain(host_lib, variant, mode):
-    table, ids, env = _batch(near=mode == "seek")
+def check_variant(host_lib, variant, mode, names=None):
+    """The per-env entry point in `variant` on the envs it is sound for."""
+    table, ids, env = _batch(near=mode == "seek", names=names)
     n = ids.shape[0]
     ok = _sound(table.features[ids.numpy()], variant)
     assert ok.sum() >= 3
@@ -127,12 +140,25 @@ def test_host_kernel_matches_plain(host_lib, variant, mode):
                         torch.from_numpy(ok), f"v{variant}")
 
 
-def test_host_block_dispatch_matches_plain(host_lib):
-    """Random actions only: in the seek mode this batch reaches a knife-edge
-    button press where the host build and the plain version part by an ulp
-    of glibc against PyTorch arithmetic (as test_torch_physics.py sees with
-    JAX), whichever way the block is dispatched."""
-    table, ids, env = _batch(near=False, per_task=20)
+@pytest.mark.parametrize("mode", ["random", "seek"])
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+def test_host_kernel_matches_plain(host_lib, variant, mode):
+    check_variant(host_lib, variant, mode)
+
+
+@pytest.mark.parametrize("mode", ["random", "seek"])
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+def test_host_kernel_matches_plain_mt25_scenes(host_lib, variant, mode):
+    """The eighteen scenes MT25 and its helper tasks add: holes and pits,
+    planar slide bodies, the tool link, carry-only hooks, hinged fixtures
+    with hooks and the mug's grasp tolerance run as CUDA source here."""
+    check_variant(host_lib, variant, mode, names=MT25_NEW)
+
+
+def check_block_dispatch(host_lib, names, per_task, mode, seed):
+    """The kernel's per-block code over a block table at block = 8, against
+    the per-env entry point (bit for bit) and the plain version."""
+    table, ids, env = _batch(near=mode == "seek", per_task=per_task, names=names)
     n = ids.shape[0]
     blocks = cuda_step.block_table(ids.numpy(), table.features, block=8)
     assert min(blocks.blocks_by_variant) > 0
@@ -152,5 +178,18 @@ def test_host_block_dispatch_matches_plain(host_lib):
                 int(count)) == 0
         assert torch.equal(out, per_env)
 
-    _hold_against_plain(run, table, ids, env, "random", 4,
+    _hold_against_plain(run, table, ids, env, mode, seed,
                         torch.ones(n, dtype=torch.bool), "blocks")
+
+
+def test_host_block_dispatch_matches_plain(host_lib):
+    """Random actions only: in the seek mode this batch reaches a knife-edge
+    button press where the host build and the plain version part by an ulp
+    of glibc against PyTorch arithmetic (as test_torch_physics.py sees with
+    JAX), whichever way the block is dispatched."""
+    check_block_dispatch(host_lib, MT10, 20, "random", 4)
+
+
+@pytest.mark.parametrize("mode", ["random", "seek"])
+def test_host_block_dispatch_matches_plain_mt25(host_lib, mode):
+    check_block_dispatch(host_lib, tbench.MT25_LIST, 12, mode, 5)

@@ -106,14 +106,15 @@ def test_scene_table_rows_are_task_rows():
     np.testing.assert_array_equal(table.rows.numpy(), per_slot.T.numpy())
 
 
-def _bench_layout_scene(n_envs):
-    """Per-slot feature arrays of bench.py's MT10 layout (numpy views)."""
-    base, rem = divmod(n_envs, 10)
-    counts = [base + (1 if i < rem else 0) for i in range(10)]
+def _bench_layout_scene(n_envs, names=MT10):
+    """Per-slot feature arrays of bench.py's layout of `names` (numpy
+    views): `n_envs` split evenly, the remainder to the first tasks."""
+    base, rem = divmod(n_envs, len(names))
+    counts = [base + (1 if i < rem else 0) for i in range(len(names))]
     fields = ("obj_exists", "joint_exists", "static_exists",
               "static_blocks_hand")
     parts = {f: [] for f in fields}
-    for name, c in zip(MT10, counts):
+    for name, c in zip(names, counts):
         sc = jregistry.get_spec(name).scene
         for f in fields:
             a = np.asarray(getattr(sc, f))
@@ -139,12 +140,14 @@ def test_block_variants_match_pallas(n_envs, block):
 LAYOUTS = [(30, 8), (200, 8), (131072, 128), (131072, 2048), (1000, 128)]
 
 
-def _layout_table(n_envs, block):
-    """bench.py's MT10 layout: per-slot task ids and their block table."""
-    base, rem = divmod(n_envs, 10)
-    ids = np.repeat(np.arange(10), [base + (i < rem) for i in range(10)])
+def _layout_table(n_envs, block, names=MT10):
+    """bench.py's layout of `names`: per-slot task ids and their block
+    table."""
+    k = len(names)
+    base, rem = divmod(n_envs, k)
+    ids = np.repeat(np.arange(k), [base + (i < rem) for i in range(k)])
     feats = cuda_step.build_scene_table(
-        [tregistry.get_spec(n).scene for n in MT10], "cpu").features
+        [tregistry.get_spec(n).scene for n in names], "cpu").features
     return ids, cuda_step.block_table(ids, feats, block)
 
 
@@ -184,6 +187,22 @@ def test_block_table_task_range_covers_task_ids(n_envs, block):
         own = ids[first:first + count]
         assert lo == own.min() and lo + k - 1 == own.max()
     assert bt.task_end == ids.max() + 1
+
+
+@pytest.mark.parametrize("n_envs,block", [(250, 8), (131072, 128)])
+def test_mt25_block_table_matches_pallas(n_envs, block):
+    """The MT25 layout (22 tasks at 5243 slots and 3 at 5242 for N =
+    131072): every env once, variants as pallas_step.block_variants gives
+    them, every variant present."""
+    ids, bt = _layout_table(n_envs, block, jbench.MT25_LIST)
+    n_pad = -(-n_envs // block) * block
+    want = pallas_step.block_variants(
+        _bench_layout_scene(n_envs, jbench.MT25_LIST), n_pad, block)
+    assert [want[f // block] for f in bt.host[:, 1]] == list(bt.host[:, 0])
+    assert sorted(bt.host[:, 1]) == list(range(0, n_envs, block))
+    assert min(bt.blocks_by_variant) > 0 and bt.task_end == 25
+    assert np.bincount(ids).tolist() == (
+        [5243] * 22 + [5242] * 3 if n_envs == 131072 else [10] * 25)
 
 
 def test_kernel_header_row_offsets():

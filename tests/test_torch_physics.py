@@ -22,6 +22,8 @@ eagerly, the reference is required to disagree with itself there, and the
 port is held to the eager result at the same tolerances.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,13 +43,15 @@ TOL = dict(hand_vel=1e-4, obj_vel=1e-4, obj_angvel=1e-4, joint_v=1e-4,
 TCP_OFFSET = np.array([0.0044, 0.0015, -0.0498], np.float32)
 
 
-def reset_batch(per_task=3, near=False):
-    """JAX reset states for `per_task` slots of every MT10 task. With
-    `near`, the weld is parked 3 cm above each slot's object or handle so
-    the steps that follow make contact."""
-    bench = jbench.MT10(seed=0, num_goals=per_task)
+def reset_batch(per_task=3, near=False, names=None):
+    """JAX reset states for `per_task` slots of every MT10 task (or of each
+    task in `names`, from its MT1 goals). With `near`, the weld is parked
+    3 cm above each slot's object or handle so the steps that follow make
+    contact."""
     envs, scenes = [], []
-    for n in MT10:
+    for n in names or MT10:
+        bench = (jbench.MT1(n, seed=0, num_goals=per_task) if names
+                 else _mt10(per_task))
         spec = bench.train_classes[n]
         table = bench.goal_table(n)
         for g in range(per_task):
@@ -63,6 +67,11 @@ def reset_batch(per_task=3, near=False):
         env = env.replace(sim=env.sim.replace(mocap=jnp.asarray(mocap),
                                               hand=jnp.asarray(goal)))
     return env, scene
+
+
+@functools.lru_cache(maxsize=None)
+def _mt10(per_task):
+    return jbench.MT10(seed=0, num_goals=per_task)
 
 
 def actions(rng, env, mode):
@@ -93,10 +102,9 @@ def bad_envs(sim_ref, sim_t):
 _step_jit = jax.jit(jlanes.control_step)
 
 
-@pytest.mark.parametrize("mode", ["random", "seek"])
-def test_control_step_matches_jax(mode):
-    env, scene = reset_batch(near=mode == "seek")
-
+def check_control_step(mode, env, scene):
+    """25 steps of the port's lane physics against the jitted JAX step,
+    each from the JAX state, with the eager rerun rule of the docstring."""
     def step_j(s, a):
         return _step_jit(scene, s, a)
     scene_t = tree_map(lambda a: convert._tensor(a, "cpu"),
@@ -119,6 +127,11 @@ def test_control_step_matches_jax(mode):
             assert not bad_envs(sim_e, tree_map(lambda x: x[i:i + 1], sim_t)), (
                 f"{mode} t={t} env {i}: port differs from eager JAX")
         sim = sim_j
+
+
+@pytest.mark.parametrize("mode", ["random", "seek"])
+def test_control_step_matches_jax(mode):
+    check_control_step(mode, *reset_batch(near=mode == "seek"))
 
 
 def test_reach_target_delta_matches_jax():
