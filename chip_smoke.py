@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Two paths, MT10 and MT25, each laid out as bench.py lays out MT10: N =
-131072 slots split evenly over the tasks, one-hot ids. Phases, each
-printing its numbers on its own line; any failure exits non-zero before
-the result line:
+Three paths, MT10, MT25 and MT50, each laid out as bench.py lays out MT10:
+N = 131072 slots split evenly over the tasks, one-hot ids; then ML45's
+two splits. Phases, each printing its numbers on its own line; any
+failure exits non-zero before the result line:
 
   1. the card: name and power limit (nvidia-smi), torch's device name;
   2. build of the physics kernel from metaworld_tpu_torch/csrc with nvcc
@@ -31,23 +31,39 @@ the result line:
      blocks as one launch; plain-version ms, fused step ms and
      env-steps/s, each beside the card and its power limit, with the
      kernel's bound and roofline share;
-  6. MT25: kernel vs plain at N = 131072 in a random mode and a seek mode
-     (half the slots start 3 cm above their object's reset anchor or above
-     the object position their reset observation reports, steer to it and
-     close the grip there), 25 control steps each from the plain
-     version's state; the max abs error per state field by variant and
-     per task (<= 1e-4), and per task the slots with an attached object, a
-     hooked joint or an unanchored object, so that the grasp and hook
-     branches are seen to run;
+  6. MT25: the block layout; kernel vs plain at N = 131072 in a random
+     mode and a seek mode (half the slots start 3 cm above their target,
+     steer to it and close the grip there: in turn the object's reset
+     anchor, the position their reset observation reports and the object's
+     grasp point, as the seek tests do), 25 control steps
+     each from the plain version's state; the max abs error per state
+     field by variant and per task (<= 1e-4), and per task the slots with
+     an attached object, a hooked joint or an unanchored object, so that
+     the grasp and hook branches are seen to run;
   7. MT25: the fused step with the kernel against the plain physics on 3
      slots per task, then 520 fused steps at N = 131072 with the checks of
      phase 4 (observations (131072, 64));
   8. MT25 timings: the kernel per control step as one launch, each
      variant's blocks as one launch with its bound over the MT25 envs, the
-     plain version, and the fused MT25 step in ms and env-steps/s.
+     plain version, and the fused MT25 step in ms and env-steps/s;
+  9. MT50: phase 6 on the MT50 layout (2622 x 22 + 2621 x 28 slots),
+     where the grasp points include the hammer's handle and the plug's end
+     cap; the seek mode must unanchor a peg-unplug-side plug, attach a hammer and hook the handle
+     of handle-pull and handle-pull-side;
+ 10. MT50: phase 7 on 2 slots per task and at N = 131072 (observations
+     (131072, 89));
+ 11. MT50 timings, as phase 8;
+ 12. ML45: `vector.from_benchmark(ML45(seed=0), split=...)`, the train
+     split (45 tasks x 2913 slots, N = 131085) and the test split (5 x
+     26214, N = 131070, terminate_on_success), the goal hidden: on each
+     split's layout, whose last block is ragged (13 and 126 envs), the
+     kernel against its plain version for 4 control steps as in phase 3
+     (<= 1e-4 per state field); then 20 fused steps each with the kernel
+     and no host synchronisation, finite outputs, one launch per step and
+     obs[:, 36:39] == 0.
 
 The line before the last is the per-kernel JSON record, one record per
-variant and path; the last line is {"ok": true, "device": {...}}. The
+variant and path (MT10, MT25, MT50); the last line is {"ok": true, "device": {...}}. The
 script imports nothing of JAX.
 """
 
@@ -65,7 +81,10 @@ N_ENVS = 131072
 FUSED_STEPS = 520
 MAX_EPISODE_STEPS = 500
 PHYS_STEPS = 5
-MT25_PHYS_STEPS = 25
+PATH_PHYS_STEPS = 25
+ML45_PER_TASK = {"train": 2913, "test": 26214}  # N = 131085 and 131070
+ML45_STEPS = 20
+ML45_HOLD_STEPS = 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # H100 SXM lane operations per second: 132 SMs x 128 float32 lanes x
 # 1.98 GHz. The published 67 TFLOP/s counts a fused multiply-add as two
@@ -104,7 +123,8 @@ def time_ms(fn, reps, warmup=2):
 def task_names(path: str) -> list:
     from metaworld_tpu_torch import benchmarks
 
-    return {"mt10": benchmarks.MT10_LIST, "mt25": benchmarks.MT25_LIST}[path]
+    return {"mt10": benchmarks.MT10_LIST, "mt25": benchmarks.MT25_LIST,
+            "mt50": benchmarks.MT50_LIST}[path]
 
 
 def bench_engine(device, n_envs, path="mt10", **kw):
@@ -184,6 +204,37 @@ def field_errors(got, ref, n):
     return out
 
 
+def hold_steps(eng, dev, gen, steps, tag):
+    """Kernel vs plain on `eng`'s layout for `steps` control steps of random
+    actions from the reset, each from the plain version's state (phases 3
+    and 12): fails on a max abs error above 1e-4 in any state field.
+    Returns the max abs error by variant."""
+    from metaworld_tpu_torch.physics import cuda_step
+
+    table, ids, blocks = eng.scene_table, eng.task_ids, eng.block_table
+    n = eng.num_envs
+    variant = env_variants(blocks, n, dev)
+    state, _ = eng.reset()
+    sim = state.env.sim
+    err_by_variant = [0.0] * 4
+    for t in range(steps):
+        act = torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
+        got = cuda_step.control_step(table, ids, sim, act, blocks)
+        ref = cuda_step.plain_control_step(table, ids, sim, act)
+        worst, field = 0.0, None
+        for f, d in field_errors(got, ref, n).items():
+            by_v = torch.zeros(4, device=dev).scatter_reduce_(0, variant, d, "amax")
+            err_by_variant = [max(a, b) for a, b in zip(err_by_variant, by_v.tolist())]
+            e = d.max().item()
+            if e > worst:
+                worst, field = e, f
+        print(f"[{tag}] step {t}: max abs err {worst:.3e} ({field})")
+        if not worst <= 1e-4:
+            fail(f"{tag}: kernel disagrees with its plain version: {field} {worst:.3e}")
+        sim = ref
+    return err_by_variant
+
+
 def seek_actions(act, sim, target, seek):
     """Seeking slots steer toward their target and close the grip within
     3 cm of it (tests/test_torch_kernel_host.py's seek mode)."""
@@ -193,9 +244,34 @@ def seek_actions(act, sim, target, seek):
     return torch.where(seek[:, None], torch.cat([steer, grip[:, None]], 1), act)
 
 
-def hold_mt25(eng, dev, gen, names):
-    """Phase 6: kernel vs plain on the MT25 layout, random and seek modes.
-    Returns the max abs error by variant over both modes."""
+def seek_targets(eng, state, obs, seek_slot):
+    """Each seeking slot's target, the three kinds in turn over the
+    seeking slots (`seek_slot` % 3): the object's reset anchor
+    (obj_init_pos), the position the reset observation reports (a faucet's
+    handle, the stick, the wrench's handle) and the object's grasp point,
+    its center plus the scene's grasp offset (the hammer's handle, the
+    plug's end cap, the lid's knob), or the reported position where the
+    task has no object. The rule of tests/test_torch_physics_mt50.py's
+    seek_targets, copied because this script imports nothing of the
+    tests."""
+    dev = obs.device
+    off = torch.tensor(np.stack([s.scene.obj_grasp_off[0] for s in eng.specs]),
+                       dtype=torch.float32, device=dev)
+    has = torch.tensor([bool(s.scene.obj_exists[0] > 0) for s in eng.specs],
+                       device=dev)
+    ids = eng.task_ids.long()
+    grasp = torch.where(has[ids][:, None], state.env.sim.obj_pos[:, 0] + off[ids],
+                        obs[:, 4:7])
+    kind = (seek_slot % 3)[:, None]
+    return torch.where(kind == 0, state.env.obj_init_pos[:, 0],
+                       torch.where(kind == 1, obs[:, 4:7], grasp))
+
+
+def hold_path(eng, dev, gen, names, path, must_see=()):
+    """Kernel vs plain on a path's layout, random and seek modes (phases 6
+    and 9). `must_see` lists (flag, task) pairs the seek mode must set on
+    some slot of the task. Returns the max abs error by variant over both
+    modes."""
     from metaworld_tpu_torch.physics import cuda_step, engine
     from metaworld_tpu_torch.types import SimState
 
@@ -207,16 +283,13 @@ def hold_mt25(eng, dev, gen, names):
     fields = list(SimState.__dataclass_fields__)
     err_by_variant = [0.0] * 4
     slot = torch.arange(n, device=dev)
+    tag = f"{path}-vs-plain"
     for mode in ("random", "seek"):
         state, obs = eng.reset()
         sim = state.env.sim
-        # seeking slots: every other slot; half of them seek the object's
-        # reset anchor (obj_init_pos, as the tests do), the other half the
-        # position the reset observation reports (the grasp point: a
-        # faucet's handle, the stick, the wrench's handle)
+        # seeking slots: every other slot, steering to seek_targets'
         seek = (slot % 2 == 0) & (mode == "seek")
-        target = torch.where((slot % 4 == 2)[:, None], obs[:, 4:7],
-                             state.env.obj_init_pos[:, 0])
+        target = seek_targets(eng, state, obs, slot // 2)
         if mode == "seek":
             goal = target + torch.tensor([0.0, 0.0, 0.03], device=dev)
             tcp = torch.tensor(engine.TCP_OFFSET, device=dev)
@@ -226,7 +299,7 @@ def hold_mt25(eng, dev, gen, names):
         by_variant = torch.zeros(len(fields), 4, device=dev)
         ever = torch.zeros(len(FLAGS_COUNTED), n, dtype=torch.bool, device=dev)
         cuda_step.reset_counts()
-        for t in range(MT25_PHYS_STEPS):
+        for t in range(PATH_PHYS_STEPS):
             act = torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
             if mode == "seek":
                 act = seek_actions(act, sim, target, seek)
@@ -239,9 +312,9 @@ def hold_mt25(eng, dev, gen, names):
             for k, f in enumerate(FLAGS_COUNTED):
                 ever[k] |= (getattr(ref, f) != 0).any(dim=1)
             sim = ref
-        if cuda_step.launches != MT25_PHYS_STEPS:
-            fail(f"mt25 {mode}: {cuda_step.launches} launches for "
-                 f"{MT25_PHYS_STEPS} control steps")
+        if cuda_step.launches != PATH_PHYS_STEPS:
+            fail(f"{path} {mode}: {cuda_step.launches} launches for "
+                 f"{PATH_PHYS_STEPS} control steps")
         end = torch.stack([(getattr(sim, f) != 0).any(dim=1) for f in FLAGS_COUNTED])
 
         def count(m):
@@ -252,11 +325,11 @@ def hold_mt25(eng, dev, gen, names):
         seen = [count(ever[k]) for k in range(len(FLAGS_COUNTED))]
         by_task, by_variant = by_task.cpu().numpy(), by_variant.cpu().numpy()
         for k, f in enumerate(fields):
-            print(f"[mt25-vs-plain {mode}] {f}: max abs err by variant "
+            print(f"[{tag} {mode}] {f}: max abs err by variant "
                   + " ".join(f"v{v} {by_variant[k, v]:.3e}" for v in range(4)))
         for t, name in enumerate(names):
             worst = int(np.argmax(by_task[:, t]))
-            print(f"[mt25-vs-plain {mode}] task {t} {name} (v"
+            print(f"[{tag} {mode}] task {t} {name} (v"
                   f"{','.join(map(str, task_variants[t]))}): max abs err "
                   f"{by_task[worst, t]:.3e} "
                   f"({fields[worst] if by_task[worst, t] > 0 else '-'}); slots attached/"
@@ -265,15 +338,20 @@ def hold_mt25(eng, dev, gen, names):
                   f"{seen[2][t]}")
         worst = float(by_task.max())
         totals = [sum(s) for s in seen]
-        print(f"[mt25-vs-plain {mode}] {MT25_PHYS_STEPS} steps x {n} envs: max abs "
+        print(f"[{tag} {mode}] {PATH_PHYS_STEPS} steps x {n} envs: max abs "
               f"err {worst:.3e}; slots attached/hooked/unanchored at any step "
               f"{totals}")
         if not worst <= 1e-4:
             t, k = np.unravel_index(np.argmax(by_task.T), by_task.T.shape)
-            fail(f"mt25 {mode}: kernel disagrees with its plain version on "
+            fail(f"{path} {mode}: kernel disagrees with its plain version on "
                  f"{names[t]}: {fields[k]} {by_task[k, t]:.3e}")
         if mode == "seek" and not (totals[0] > 0 and totals[1] > 0):
-            fail(f"mt25 seek: the grasp and hook branches did not run ({totals})")
+            fail(f"{path} seek: the grasp and hook branches did not run ({totals})")
+        if mode == "seek":
+            for flag, task in must_see:
+                got = seen[FLAGS_COUNTED.index(flag)][names.index(task)]
+                if got == 0:
+                    fail(f"{path} seek: no {task} slot {flag}: the branch did not run")
         for v in range(4):
             err_by_variant[v] = max(err_by_variant[v], float(by_variant[:, v].max()))
     return err_by_variant
@@ -426,6 +504,121 @@ def count_ops(path):
     return ops
 
 
+def run_path(path, dev, gen, card, seed, n_small, fused_mt10_ms, must_see=()):
+    """Phases 6-8 (MT25) and 9-11 (MT50): kernel vs plain in the random and
+    the seek mode, the fused step with the kernel against the plain physics
+    on `n_small` slots, 520 fused steps at N = 131072 and the timings.
+    Returns the path's `kernels` records."""
+    from metaworld_tpu_torch.physics import cuda_step
+
+    names = task_names(path)
+    eng = bench_engine(dev, N_ENVS, path, max_episode_steps=MAX_EPISODE_STEPS)
+    counts = [int(c) for c in np.bincount(eng.task_ids.cpu().numpy())]
+    print(f"[{path} blocks] {len(names)} tasks, slots per task {counts}; one launch "
+          f"of {eng.block_table.host.shape[0]} blocks, by variant "
+          f"{eng.block_table.blocks_by_variant}")
+    gen.manual_seed(seed)
+    errs = hold_path(eng, dev, gen, names, path, must_see)
+    print(f"[{path}-vs-plain] max err by variant over both modes "
+          f"{['%.3e' % e for e in errs]}")
+
+    # the fused step, small batch and main path
+    worst = fused_small(dev, gen, path, n_small)
+    bad = {k: v for k, v in worst.items() if not v <= 1e-4}
+    print(f"[{path} fused-small] kernel vs plain physics, 12 steps x {n_small} "
+          f"envs: worst {max(worst.values()):.3e}")
+    if bad:
+        fail(f"{path}: fused step with the kernel disagrees with the plain physics: {bad}")
+    gen.manual_seed(seed + 1)
+    launches, acts = fused_main(eng, dev, gen, 39 + len(names), f"{path} fused")
+
+    # timings
+    table, ids, blocks = eng.scene_table, eng.task_ids, eng.block_table
+    state, _ = eng.reset()
+    sim = state.env.sim
+    act = acts[0]
+    mocap, target, effort = cuda_step._sim_and_ctl(table, ids, sim, act)
+    ctl = torch.cat([target.T, effort[None]]).contiguous()
+    rows = cuda_step.pack_sim_rows(sim).contiguous()
+    kernel_ms = time_ms(lambda: cuda_step.launch_rows(
+        table.rows, ids, rows, ctl, blocks), 50)
+    plain_ms = time_ms(lambda: cuda_step.plain_control_step(
+        table, ids, sim, act), 3, 1)
+    fused_ms = time_ms(lambda: eng.step(state, act), 20)
+    ops = count_ops(path)
+    b_bytes, b_ops = control_step_bound(eng, ops)
+    print(f"[{path} time] {card}: kernel {kernel_ms:.4f} ms per control step "
+          f"(one launch, N={N_ENVS}); plain torch physics {plain_ms:.2f} ms; "
+          f"bound {max(b_bytes, b_ops) * 1e3:.2f} us "
+          f"({'operations' if b_ops >= b_bytes else 'bytes'}; bytes "
+          f"{b_bytes * 1e3:.2f} us); roofline share "
+          f"{max(b_bytes, b_ops) / kernel_ms:.3f}")
+    print(f"[{path} time] {card}: fused {path.upper()} step {fused_ms:.3f} ms, "
+          f"{N_ENVS / fused_ms * 1e3:.0f} env-steps/s at N={N_ENVS}; fused MT10 "
+          f"step {fused_mt10_ms:.3f} ms in this run")
+    return variant_records(eng, dev, act, ops, path, launches, errs, card)
+
+
+def run_ml45(dev, gen, card):
+    """Phase 12: ML45's train split (45 tasks x 2913 slots, N = 131085)
+    and test split (5 x 26214, N = 131070, terminate_on_success), the goal
+    hidden. On each split's layout, with its ragged last block, the kernel
+    against its plain version for 4 control steps; then 20 fused steps
+    with the kernel and no host synchronisation, finite outputs, one
+    launch per step and a zero goal block in every observation."""
+    from metaworld_tpu_torch import benchmarks, vector
+    from metaworld_tpu_torch.physics import cuda_step
+
+    bench = benchmarks.ML45(seed=0)
+    for split, kw in (("train", {}), ("test", dict(terminate_on_success=True))):
+        per_task = ML45_PER_TASK[split]
+        eng = vector.from_benchmark(bench, split=split, envs_per_task=per_task,
+                                    device=dev, **kw)
+        n, h = eng.num_envs, eng.block_table.host
+        print(f"[ml45 {split} blocks] {len(eng.specs)} tasks x {per_task} = {n} "
+              f"envs; one launch of {h.shape[0]} blocks, by variant "
+              f"{eng.block_table.blocks_by_variant}; env counts of the blocks "
+              f"{sorted({int(c) for c in h[:, 2]})}")
+        errs = hold_steps(eng, dev, gen, ML45_HOLD_STEPS, f"ml45 {split}-vs-plain")
+        print(f"[ml45 {split}-vs-plain] {ML45_HOLD_STEPS} steps x {n} envs: max "
+              f"err by variant {['%.3e' % e for e in errs]}")
+        state, obs = eng.reset()
+        torch.cuda.synchronize()
+        finite = torch.isfinite(obs).all()
+        hidden = (obs[:, 36:39] == 0).all()
+        cuda_step.reset_counts()
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(ML45_STEPS):
+                act = torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
+                state, out = eng.step(state, act)
+                for k in ("obs", "reward", "episode_return", "grasp_reward",
+                          "in_place_reward", "obj_to_target"):
+                    finite = finite & torch.isfinite(out[k]).all()
+                hidden = hidden & (out["obs"][:, 36:39] == 0).all()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        print(f"[ml45 {split}] {card}: {len(eng.specs)} tasks x {per_task} = {n} "
+              f"envs, obs {tuple(out['obs'].shape)}; {ML45_STEPS} steps in {wall:.2f} "
+              f"s wall; "
+              f"launches {cuda_step.launches}, blocks by variant "
+              f"{eng.block_table.blocks_by_variant}; successes in the last step "
+              f"{int(out['success'].sum())}")
+        if not bool(finite):
+            fail(f"ml45 {split}: non-finite outputs")
+        if not bool(hidden):
+            fail(f"ml45 {split}: the goal is not hidden")
+        if cuda_step.launches != ML45_STEPS:
+            fail(f"ml45 {split}: {cuda_step.launches} kernel launches for "
+                 f"{ML45_STEPS} steps")
+        if tuple(out["obs"].shape) != (n, 39):
+            fail(f"ml45 {split}: obs shape {tuple(out['obs'].shape)}")
+        del eng, state, out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -456,31 +649,11 @@ def main():
     print(f"[blocks] one launch of {blocks.host.shape[0]} blocks, by variant "
           f"{blocks.blocks_by_variant} (heaviest first); earlier schedule: "
           f"{len(runs)} launches " + ", ".join(f"v{v}@{s}+{c}" for v, s, c in runs))
-    env_variant = env_variants(blocks, N_ENVS, dev)
     table, ids = eng.scene_table, eng.task_ids
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    state, _ = eng.reset()
-    sim = state.env.sim
     cuda_step.reset_counts()
-    err_by_variant = [0.0] * 4
-    for t in range(PHYS_STEPS):
-        act = torch.rand(N_ENVS, 4, generator=gen, device=dev) * 2 - 1
-        got = cuda_step.control_step(table, ids, sim, act, blocks)
-        ref = cuda_step.plain_control_step(table, ids, sim, act)
-        torch.cuda.synchronize()
-        worst, field = 0.0, None
-        for f, d in field_errors(got, ref, N_ENVS).items():
-            for v in range(4):
-                err_by_variant[v] = max(err_by_variant[v],
-                                        d[env_variant == v].max().item())
-            e = d.max().item()
-            if e > worst:
-                worst, field = e, f
-        print(f"[kernel-vs-plain] step {t}: max abs err {worst:.3e} ({field})")
-        if not worst <= 1e-4:
-            fail(f"kernel disagrees with its plain version: {field} {worst:.3e}")
-        sim = ref
+    err_by_variant = hold_steps(eng, dev, gen, PHYS_STEPS, "kernel-vs-plain")
     if cuda_step.launches != PHYS_STEPS or min(cuda_step.blocks_by_variant) == 0:
         fail(f"expected {PHYS_STEPS} launches running every variant, got "
              f"{cuda_step.launches}, blocks by variant {cuda_step.blocks_by_variant}")
@@ -547,54 +720,16 @@ def main():
                               err_by_variant, card)
     del eng, state, sim, rows, ctl, acts
 
-    # ---- 6. MT25: kernel vs plain, random and seek ----
-    names = task_names("mt25")
-    eng25 = bench_engine(dev, N_ENVS, "mt25", max_episode_steps=MAX_EPISODE_STEPS)
-    counts = [int(c) for c in np.bincount(eng25.task_ids.cpu().numpy())]
-    print(f"[mt25 blocks] {len(names)} tasks, slots per task {counts}; one launch "
-          f"of {eng25.block_table.host.shape[0]} blocks, by variant "
-          f"{eng25.block_table.blocks_by_variant}")
-    gen.manual_seed(3)
-    err25 = hold_mt25(eng25, dev, gen, names)
-    print(f"[mt25-vs-plain] max err by variant over both modes "
-          f"{['%.3e' % e for e in err25]}")
+    # ---- 6-8. MT25; 9-11. MT50 ----
+    kernels += run_path("mt25", dev, gen, card, 3, 75, fused_ms)
+    kernels += run_path(
+        "mt50", dev, gen, card, 5, 100, fused_ms,
+        must_see=(("unanchored", "peg-unplug-side-v3"), ("attached", "hammer-v3"),
+                  ("hooked", "handle-pull-v3"), ("hooked", "handle-pull-side-v3")))
 
-    # ---- 7. MT25: fused step, small batch and main path ----
-    worst = fused_small(dev, gen, "mt25", 75)
-    bad = {k: v for k, v in worst.items() if not v <= 1e-4}
-    print(f"[mt25 fused-small] kernel vs plain physics, 12 steps x 75 envs: "
-          f"worst {max(worst.values()):.3e}")
-    if bad:
-        fail(f"mt25: fused step with the kernel disagrees with the plain physics: {bad}")
-    gen.manual_seed(4)
-    launches25, acts25 = fused_main(eng25, dev, gen, 39 + len(names), "mt25 fused")
-
-    # ---- 8. MT25 timings ----
-    table25, ids25, blocks25 = eng25.scene_table, eng25.task_ids, eng25.block_table
-    state, _ = eng25.reset()
-    sim = state.env.sim
-    act = acts25[0]
-    mocap, target, effort = cuda_step._sim_and_ctl(table25, ids25, sim, act)
-    ctl = torch.cat([target.T, effort[None]]).contiguous()
-    rows = cuda_step.pack_sim_rows(sim).contiguous()
-    kernel25_ms = time_ms(lambda: cuda_step.launch_rows(
-        table25.rows, ids25, rows, ctl, blocks25), 50)
-    plain25_ms = time_ms(lambda: cuda_step.plain_control_step(
-        table25, ids25, sim, act), 3, 1)
-    fused25_ms = time_ms(lambda: eng25.step(state, act), 20)
-    ops25 = count_ops("mt25")
-    b_bytes, b_ops = control_step_bound(eng25, ops25)
-    print(f"[mt25 time] {card}: kernel {kernel25_ms:.4f} ms per control step "
-          f"(one launch, N={N_ENVS}); plain torch physics {plain25_ms:.2f} ms; "
-          f"bound {max(b_bytes, b_ops) * 1e3:.2f} us "
-          f"({'operations' if b_ops >= b_bytes else 'bytes'}; bytes "
-          f"{b_bytes * 1e3:.2f} us); roofline share "
-          f"{max(b_bytes, b_ops) / kernel25_ms:.3f}")
-    print(f"[mt25 time] {card}: fused MT25 step {fused25_ms:.3f} ms, "
-          f"{N_ENVS / fused25_ms * 1e3:.0f} env-steps/s at N={N_ENVS}; fused MT10 "
-          f"step {fused_ms:.3f} ms in this run")
-    kernels += variant_records(eng25, dev, act, ops25, "mt25", launches25,
-                               err25, card)
+    # ---- 12. ML45, both splits ----
+    gen.manual_seed(7)
+    run_ml45(dev, gen, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

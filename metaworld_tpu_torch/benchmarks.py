@@ -1,6 +1,5 @@
 """Benchmark construction (numpy), copied from the JAX package's
-`benchmarks.py` for the task sets whose modules are ported: MT1, MT10 and
-MT25.
+`benchmarks.py`: MT1/MT10/MT25/MT50, ML1/ML10/ML25/ML45 and CustomML.
 
 Reimplements the reference's Benchmark ABC and task generation
 (ref metaworld/__init__.py:55-395, env_dict.py:217-465) with one key
@@ -40,6 +39,30 @@ MT25_LIST = MT10_LIST + [
     "sweep-into-v3", "faucet-close-v3", "coffee-button-v3",
     "button-press-topdown-wall-v3", "dial-turn-v3",
 ]
+
+MT50_LIST = registry.ALL_V3_ENVIRONMENTS
+
+ML10_TRAIN = [
+    "reach-v3", "push-v3", "pick-place-v3", "door-open-v3", "drawer-close-v3",
+    "button-press-topdown-v3", "peg-insert-side-v3", "window-open-v3",
+    "sweep-v3", "basketball-v3",
+]
+ML10_TEST = [
+    "drawer-open-v3", "door-close-v3", "shelf-place-v3", "sweep-into-v3",
+    "lever-pull-v3",
+]
+
+ML25_TRAIN = MT25_LIST
+ML25_TEST = [
+    "basketball-v3", "door-close-v3", "shelf-place-v3", "sweep-v3",
+    "button-press-v3",
+]
+
+ML45_TEST = [
+    "bin-picking-v3", "box-close-v3", "hand-insert-v3", "door-lock-v3",
+    "door-unlock-v3",
+]
+ML45_TRAIN = [n for n in MT50_LIST if n not in ML45_TEST]
 
 # Rejection-resampling conditions per task (the reference's `while bad:
 # resample` loops in each reset_model; see e.g. sawyer_reach_v3.py:127-129).
@@ -170,3 +193,55 @@ def MT10(seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
 
 def MT25(seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
     return _mt(MT25_LIST, seed, num_goals)
+
+
+def MT50(seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
+    return _mt(MT50_LIST, seed, num_goals)
+
+
+def ML1(env_name: str, seed: int | None = None,
+        num_goals: int = _N_GOALS) -> Benchmark:
+    """Meta-RL on one env: train and test goals from disjoint seeds
+    (ref :271-299 — test seed = seed + 1)."""
+    assert env_name in registry.TASK_ID, f"unknown env {env_name}"
+    return Benchmark(
+        train_classes=_specs([env_name]),
+        test_classes=_specs([env_name]),
+        train_tasks=_make_tasks([env_name], seed, partially_observable=True,
+                                n_goals=num_goals),
+        test_tasks=_make_tasks(
+            [env_name], seed + 1 if seed is not None else None,
+            partially_observable=True, n_goals=num_goals,
+        ),
+    )
+
+
+def _ml(train: list[str], test: list[str], seed=None,
+        num_goals: int = _N_GOALS) -> Benchmark:
+    return Benchmark(
+        train_classes=_specs(train),
+        test_classes=_specs(test),
+        train_tasks=_make_tasks(train, seed, partially_observable=True,
+                                n_goals=num_goals),
+        test_tasks=_make_tasks(test, seed, partially_observable=True,
+                               n_goals=num_goals),
+    )
+
+
+def ML10(seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
+    return _ml(ML10_TRAIN, ML10_TEST, seed, num_goals)
+
+
+def ML25(seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
+    return _ml(ML25_TRAIN, ML25_TEST, seed, num_goals)
+
+
+def ML45(seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
+    return _ml(ML45_TRAIN, ML45_TEST, seed, num_goals)
+
+
+def CustomML(train_envs: list[str], test_envs: list[str],
+             seed: int | None = None, num_goals: int = _N_GOALS) -> Benchmark:
+    """(ref :370-395 — train and test sets must be disjoint)"""
+    assert not set(train_envs) & set(test_envs), "train and test must not overlap"
+    return _ml(train_envs, test_envs, seed, num_goals)

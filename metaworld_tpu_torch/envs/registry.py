@@ -4,9 +4,8 @@ The ordering below must match the reference's ALL_V3_ENVIRONMENTS
 (ref metaworld/env_dict.py:217-270) — one-hot task IDs, benchmark splits and
 checkpoint layouts all key off this order.
 
-Copied from the JAX package's `envs/registry.py`; the port holds the MT25
-task modules and assembly, stick-push and button-press so far (28 of the
-50), so `get_spec` raises ModuleNotFoundError for the others.
+Copied from the JAX package's `envs/registry.py`; all 50 task modules are
+ported.
 
 Task modules register themselves lazily: each module in
 metaworld_tpu_torch/envs/tasks/ calls `register(name)(make_spec)` at import.

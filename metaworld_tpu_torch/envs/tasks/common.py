@@ -56,11 +56,17 @@ def vec3(x, y, z):
                        dim=-1)
 
 
+def const_rows(like, c):
+    """(n, 3) rows of a constant Python 3-tuple `c`, filled on the device
+    of `like` (n, ...)."""
+    lane = like.reshape(like.shape[0], -1)[:, 0]
+    return torch.stack([torch.full_like(lane, float(v)) for v in c], dim=-1)
+
+
 def rotate_const(q, v):
     """A constant 3-vector `v` (Python numbers) rotated by quaternions
     q (n, 4): maths.quat_rotate on a vector filled on q's device."""
-    vec = torch.stack([torch.full_like(q[:, 0], float(c)) for c in v], dim=-1)
-    return maths.quat_rotate(q, vec)
+    return maths.quat_rotate(q, const_rows(q, v))
 
 
 def eval_out(reward, success, near_object=0.0, grasp_success=0.0,

@@ -1,6 +1,6 @@
 """Where the fused multi-task step spends its time on the GPU.
 
-    python -m metaworld_tpu_torch.profile_step [--tasks mt10|mt25]
+    python -m metaworld_tpu_torch.profile_step [--tasks mt10|mt25|mt50]
         [--envs 131072] [--reps 20]
 
 Builds the engine as bench.py lays out MT10 (one-hot ids, counts split
@@ -48,7 +48,8 @@ def _time_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-TASK_SETS = {"mt10": benchmarks.MT10, "mt25": benchmarks.MT25}
+TASK_SETS = {"mt10": benchmarks.MT10, "mt25": benchmarks.MT25,
+             "mt50": benchmarks.MT50}
 
 
 def bench_engine(dev, n_envs, tasks="mt10", **kw) -> vector.FusedBatchedEnvs:

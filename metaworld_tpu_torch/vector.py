@@ -17,6 +17,10 @@ of the JAX package). Differences in form, not in result:
     there are no per-slot PRNG keys. `task_select="pseudorandom"` pins each
     slot to `goal_idx`, which lets a test pin both implementations to the
     same rows.
+
+`terminate_on_success` and `autoreset` take the JAX engine's meaning: a
+success terminates the episode, and without autoreset no slot is ever
+pending, so each step returns its own observation.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ class FusedBatchedEnvs:
     `physics`: "cuda" (the hand-written kernel; CUDA device only), "torch"
     (the plain PyTorch lane engine, any device) or "auto" ("cuda" on a CUDA
     device, "torch" on the CPU). "auto" never moves tensors between devices.
+    `goal_visible` is one flag for all tasks or one per task (the ML
+    benchmarks hide the goal).
     """
 
     def __init__(
@@ -74,7 +80,9 @@ class FusedBatchedEnvs:
         goal_tables: Sequence[np.ndarray],
         goal_visible: Sequence[bool] | bool = True,
         one_hot: bool = False,
+        terminate_on_success: bool = False,
         max_episode_steps: int = MAX_PATH_LENGTH,
+        autoreset: bool = True,
         task_select: str = "random",
         physics: str = "auto",
         device="cuda",
@@ -95,7 +103,9 @@ class FusedBatchedEnvs:
         if isinstance(goal_visible, bool):
             goal_visible = [goal_visible] * len(specs)
         self.goal_visible = [float(v) for v in goal_visible]
+        self.terminate_on_success = bool(terminate_on_success)
         self.max_episode_steps = int(max_episode_steps)
+        self.autoreset = bool(autoreset)
         self.task_select = task_select
         self._offsets = np.cumsum([0] + self.counts)
         self._gen = torch.Generator(device=dev)
@@ -213,24 +223,30 @@ class FusedBatchedEnvs:
         metrics = {k: getattr(out, k) for k in _METRICS}
         metrics["unscaled_reward"] = unscaled
 
+        terminated = out.terminated
+        if self.terminate_on_success:
+            terminated = terminated | (out.success > 0)
+        truncated = out.truncated | (env.path_length >= self.max_episode_steps)
+
         # NEXT_STEP autoreset: slots done last step return a fresh reset
         # and no step metrics
         pending = state.pending_reset
-        terminated = out.terminated & ~pending
-        truncated = (out.truncated
-                     | (env.path_length >= self.max_episode_steps)) & ~pending
-        rows = self._reset_rows(state.goal_idx)
-        env = _select(pending, tree_map(lambda t: t[rows], self._reset_env), env)
-        obs = torch.where(pending[:, None], self._reset_obs[rows], out.obs)
-        reward = torch.where(pending, 0.0, reward)
-        metrics = {k: torch.where(pending, 0.0, v) for k, v in metrics.items()}
+        obs = out.obs
+        if self.autoreset:
+            terminated = terminated & ~pending
+            truncated = truncated & ~pending
+            rows = self._reset_rows(state.goal_idx)
+            env = _select(pending, tree_map(lambda t: t[rows], self._reset_env), env)
+            obs = torch.where(pending[:, None], self._reset_obs[rows], obs)
+            reward = torch.where(pending, 0.0, reward)
+            metrics = {k: torch.where(pending, 0.0, v) for k, v in metrics.items()}
 
         done = terminated | truncated
         ep_ret = torch.where(pending, 0.0, state.episode_return) + reward
         ep_len = torch.where(pending, 0, state.episode_length) + 1
         new_state = FusedState(
             env=env,
-            pending_reset=done,
+            pending_reset=done if self.autoreset else torch.zeros_like(done),
             episode_return=ep_ret,
             episode_length=ep_len,
             goal_idx=state.goal_idx,
@@ -248,10 +264,19 @@ class FusedBatchedEnvs:
         return new_state, outputs
 
 
-def from_benchmark(bench, envs_per_task: int = 1, **kwargs) -> FusedBatchedEnvs:
-    """`envs_per_task` slots per task of a benchmark's train split, goals
-    from that task's goal table."""
-    names = list(bench.train_classes.keys())
+def from_benchmark(bench, split: str = "train", envs_per_task: int = 1,
+                   **kwargs) -> FusedBatchedEnvs:
+    """`envs_per_task` slots per task of a benchmark's `split` ("train" or
+    "test"), goals from that task's goal table of the split; the goal is
+    hidden for tasks whose split is partially observable (the ML
+    benchmarks). `kwargs` go to FusedBatchedEnvs."""
+    assert split in ("train", "test")
+    classes = bench.train_classes if split == "train" else bench.test_classes
+    tasks = bench.train_tasks if split == "train" else bench.test_tasks
+    names = list(classes.keys())
+    visible = [not any(t.partially_observable for t in tasks if t.env_name == n)
+               for n in names]
     return FusedBatchedEnvs(
-        [bench.train_classes[n] for n in names], [envs_per_task] * len(names),
-        [bench.goal_table(n) for n in names], **kwargs)
+        [classes[n] for n in names], [envs_per_task] * len(names),
+        [bench.goal_table(n, split) for n in names], goal_visible=visible,
+        **kwargs)

@@ -32,8 +32,8 @@ def _engine(device, per_task, bench=benchmarks.MT10, **kw):
         [bench.goal_table(n) for n in names], one_hot=True, device=device, **kw)
 
 
-@pytest.mark.parametrize("bench", [benchmarks.MT10, benchmarks.MT25],
-                         ids=["mt10", "mt25"])
+@pytest.mark.parametrize("bench", [benchmarks.MT10, benchmarks.MT25, benchmarks.MT50],
+                         ids=["mt10", "mt25", "mt50"])
 def test_kernel_matches_plain_every_variant(device, bench):
     eng = _engine(device, 200, bench)
     assert eng.physics == "cuda"
@@ -111,3 +111,39 @@ def test_fused_step_kernel_matches_plain_physics_without_sync(device):
                                        op[k].double().cpu().numpy(),
                                        rtol=1e-5, atol=1e-5, err_msg=k)
     assert bool(torch.stack([o["done"] for o in outs_k]).any(0).all())
+
+
+def test_ml_test_split_kernel_matches_plain_physics_without_sync(device):
+    """ML10's test split (goal hidden, terminate_on_success) with the kernel
+    against the plain physics, 12 steps with no host synchronisation."""
+    bench = benchmarks.ML10(seed=0, num_goals=5)
+    kw = dict(split="test", envs_per_task=6, terminate_on_success=True,
+              max_episode_steps=4, task_select="pseudorandom", device=device)
+    ek = vector.from_benchmark(bench, **kw)
+    ep = vector.from_benchmark(bench, physics="torch", **kw)
+    assert ek.physics == "cuda"
+    goal_idx = torch.arange(ek.num_envs, device=device, dtype=torch.int32) % 5
+    s, obs = ek.reset(goal_idx)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    acts = [torch.rand(ek.num_envs, 4, generator=gen, device=device) * 2 - 1
+            for _ in range(12)]
+    torch.cuda.synchronize()
+    cuda_step.reset_counts()
+    outs_k = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for a in acts:
+            s, o = ek.step(s, a)
+            outs_k.append(o)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_step.launches == len(acts)
+    s, _ = ek.reset(goal_idx)
+    for a, ok in zip(acts, outs_k):
+        s, op = ep.step(s, a)
+        assert bool((ok["obs"][:, 36:39] == 0).all())  # the goal is hidden
+        for k in vector.OUT_KEYS:
+            np.testing.assert_allclose(ok[k].double().cpu().numpy(),
+                                       op[k].double().cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=k)

@@ -84,10 +84,12 @@ def make_engines(jb, tb, names, per_task):
     return je, te, jax.jit(je._step_impl)
 
 
-def check_fused(je, te, step_j, n_goals, steps=20):
-    """Pinned goal rows on both sides; the first half of the steps restart
-    the port from the JAX state, the rest run free. Returns the port's
-    states after each step."""
+def check_fused(je, te, step_j, n_goals, steps=20, restart=None, crossings=2):
+    """Pinned goal rows on both sides; the first `restart` steps (half by
+    default) restart the port from the JAX state, the rest run free. Every
+    slot must cross autoreset `crossings` times. Returns the port's states
+    after each step."""
+    restart = steps // 2 if restart is None else restart
     rng = np.random.default_rng(0)
     gidx = rng.integers(0, n_goals, te.num_envs).astype(np.int32)
     sj, oj = je._reset_jit(jax.random.PRNGKey(0), jnp.asarray(gidx))
@@ -98,16 +100,16 @@ def check_fused(je, te, step_j, n_goals, steps=20):
     states = []
     for t in range(steps):
         act = rng.uniform(-1, 1, (te.num_envs, 4)).astype(np.float32)
-        if t < steps // 2:  # restart from the shared state
+        if t < restart:  # restart from the shared state
             st = convert.fused_from_dict(convert.as_dict(sj), "cpu")
         resets += int(np.asarray(sj.pending_reset).sum())
         sj, out_j = step_j(sj, jnp.asarray(act))
         st, out_t = te.step(st, torch.from_numpy(act))
-        where = f"t={t} ({'restart' if t < steps // 2 else 'free'})"
+        where = f"t={t} ({'restart' if t < restart else 'free'})"
         _compare_out(out_j, out_t, where)
         _compare_state(sj, st, where)
         states.append(st)
-    assert resets >= 2 * te.num_envs  # every slot crossed autoreset
+    assert resets >= crossings * te.num_envs  # every slot crossed autoreset
     return states
 
 

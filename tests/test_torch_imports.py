@@ -27,7 +27,7 @@ def test_port_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"vector.py", "physics/cuda_step.py", "physics/engine_lanes.py",
             "envs/core.py", "convert.py"} <= names
-    assert len([p for p in MODULES if p.name.endswith("_v3.py")]) == 28
+    assert len([p for p in MODULES if p.name.endswith("_v3.py")]) == 50
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: p.relative_to(PKG).as_posix())
@@ -44,6 +44,8 @@ def test_importing_the_port_loads_no_jax():
         "import metaworld_tpu_torch.benchmarks as b\n"
         "b.MT10(seed=0, num_goals=2)\n"
         "b.MT25(seed=0, num_goals=2)\n"
+        "b.MT50(seed=0, num_goals=2)\n"
+        "b.ML45(seed=0, num_goals=2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'metaworld_tpu')]\n"
         "assert not bad, bad\n"
@@ -53,3 +55,21 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "clean" in res.stdout
+
+
+def test_every_task_module_imports_with_jax_blocked():
+    """With jax, jaxlib, flax and metaworld_tpu made unimportable, every one
+    of the 50 task modules imports and builds its spec."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'metaworld_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from metaworld_tpu_torch.envs import registry\n"
+        "specs = [registry.get_spec(n) for n in registry.ALL_V3_ENVIRONMENTS]\n"
+        "assert len(specs) == 50\n"
+        "print('imported', len(specs))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "imported 50" in res.stdout

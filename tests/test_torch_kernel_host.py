@@ -1,6 +1,7 @@
 """The CUDA kernel's arithmetic, built for the host with g++ from the same
 `csrc/substep.cuh`, against the port's plain PyTorch version on one batch
-holding all ten MT10 scenes.
+holding all ten MT10 scenes (and, in further cases, the scenes MT25
+adds; test_torch_kernel_host_mt50.py holds those MT50 adds).
 
 Each of the four template instantiations (pallas_step's v0..v3) runs the
 envs it is sound for, through the same packed-row interface the kernel
@@ -29,6 +30,7 @@ from metaworld_tpu_torch import benchmarks as tbench
 from metaworld_tpu_torch.envs.core import env_reset
 from metaworld_tpu_torch.physics import _build, cuda_step
 from metaworld_tpu_torch.types import tree_map
+from tests.test_torch_physics_mt50 import seek_targets
 
 MT10 = tbench.MT10_LIST
 MT25_NEW = [n for n in tbench.MT25_LIST if n not in MT10] + [
@@ -52,10 +54,15 @@ def host_lib():
     return lib
 
 
-def _batch(near, per_task=3, names=None):
+def _batch(near, per_task=3, names=None, grasp_targets=False):
     """Reset states of `per_task` slots of every MT10 task (MT10 goals), or
     of each task in `names` (MT25 goals, or MT1 for a task outside MT25),
-    with the scene table and the per-slot task ids."""
+    with the scene table and the per-slot task ids. With `near` every slot
+    is parked 3 cm above its seek target, obj_init_pos; with
+    `grasp_targets` that target is test_torch_physics_mt50.seek_targets'
+    (the reset anchor, the reported position or the grasp point, in turn
+    over each task's slots), and the batch carries it in obj_init_pos,
+    where the seek mode steers."""
     suite = (tbench.MT10 if names is None else tbench.MT25)(
         seed=0, num_goals=per_task)
     names = names or MT10
@@ -67,14 +74,24 @@ def _batch(near, per_task=3, names=None):
 
     specs = [bench_of(n).train_classes[n] for n in names]
     table = cuda_step.build_scene_table([s.scene for s in specs], "cpu")
-    envs, ids = [], []
+    envs, reported, ids = [], [], []
     for k, spec in enumerate(specs):
         goals = torch.from_numpy(
             bench_of(spec.name).goal_table(spec.name).astype(np.float32))
-        st, _ = env_reset(spec, goals, 1.0)
+        st, obs = env_reset(spec, goals, 1.0)
         envs.append(st)
+        reported.append(obs[:, 4:7])
         ids += [k] * goals.shape[0]
     env = tree_map(lambda *x: torch.cat(x), *envs)
+    if grasp_targets:
+        scene = [specs[k].scene for k in ids]
+        target = seek_targets(
+            env.obj_init_pos[:, 0].numpy(), torch.cat(reported).numpy(),
+            env.sim.obj_pos[:, 0].numpy(), np.stack([s.obj_grasp_off[0] for s in scene]),
+            np.array([s.obj_exists[0] > 0 for s in scene]), per_task)
+        obj_init_pos = env.obj_init_pos.clone()
+        obj_init_pos[:, 0] = torch.from_numpy(target)
+        env = env.replace(obj_init_pos=obj_init_pos)
     if near:
         goal = env.obj_init_pos[:, 0] + torch.tensor([0.0, 0.0, 0.03])
         env = env.replace(sim=env.sim.replace(
@@ -92,12 +109,13 @@ def _sound(features, variant):
     return ok
 
 
-def _hold_against_plain(run, table, ids, env, mode, seed, mask, what):
-    """25 control steps, each from the plain version's state: `run(rows,
-    ctl, out)` fills the packed output rows, held on the envs in `mask`."""
+def plain_steps(table, ids, env, mode, seed):
+    """25 control steps of the plain version from the batch `env`, each
+    from the last one's result: [(state, action, result)]. The seek mode
+    steers to obj_init_pos and closes the grip within 3 cm of it."""
     n = ids.shape[0]
     rng = np.random.default_rng(seed)
-    sim = env.sim
+    sim, steps = env.sim, []
     for t in range(25):
         act = rng.uniform(-1, 1, (n, 4)).astype(np.float32)
         if mode == "seek":
@@ -107,6 +125,16 @@ def _hold_against_plain(run, table, ids, env, mode, seed, mask, what):
                                  act[:, 3])
         act = torch.from_numpy(act)
         ref = cuda_step.plain_control_step(table, ids, sim, act)
+        steps.append((sim, act, ref))
+        sim = ref
+    return steps
+
+
+def hold_steps(run, table, ids, steps, mask, what):
+    """`run(rows, ctl, out)` fills the packed output rows of each step's
+    state and action; held against the plain result on the envs in
+    `mask`."""
+    for t, (sim, act, ref) in enumerate(steps):
         mocap, target, effort = cuda_step._sim_and_ctl(table, ids, sim, act)
         ctl = torch.cat([target.T, effort[None]]).contiguous()
         rows = cuda_step.pack_sim_rows(sim).contiguous()
@@ -118,13 +146,19 @@ def _hold_against_plain(run, table, ids, env, mode, seed, mask, what):
             b = getattr(got, field)[mask].double()
             err = (a - b).abs().max().item()
             assert err <= TOL.get(field, 1e-5) + 1e-6 * a.abs().max().item(), (
-                f"{what} {mode} t={t}: {field} off by {err:.3e}")
-        sim = ref
+                f"{what} t={t}: {field} off by {err:.3e}")
 
 
-def check_variant(host_lib, variant, mode, names=None):
-    """The per-env entry point in `variant` on the envs it is sound for."""
-    table, ids, env = _batch(near=mode == "seek", names=names)
+def _hold_against_plain(run, table, ids, env, mode, seed, mask, what):
+    """25 control steps, each from the plain version's state: `run(rows,
+    ctl, out)` fills the packed output rows, held on the envs in `mask`."""
+    hold_steps(run, table, ids, plain_steps(table, ids, env, mode, seed), mask,
+               f"{what} {mode}")
+
+
+def variant_runner(host_lib, variant, table, ids):
+    """The per-env entry point in `variant` on the envs it is sound for:
+    (run, mask) for hold_steps."""
     n = ids.shape[0]
     ok = _sound(table.features[ids.numpy()], variant)
     assert ok.sum() >= 3
@@ -136,8 +170,14 @@ def check_variant(host_lib, variant, mode, names=None):
                 rows.data_ptr(), ctl.data_ptr(), out.data_ptr(), n,
                 int(i), 1) == 0
 
-    _hold_against_plain(run, table, ids, env, mode, variant,
-                        torch.from_numpy(ok), f"v{variant}")
+    return run, torch.from_numpy(ok)
+
+
+def check_variant(host_lib, variant, mode, names=None):
+    """The per-env entry point in `variant` on the envs it is sound for."""
+    table, ids, env = _batch(near=mode == "seek", names=names)
+    run, mask = variant_runner(host_lib, variant, table, ids)
+    _hold_against_plain(run, table, ids, env, mode, variant, mask, f"v{variant}")
 
 
 @pytest.mark.parametrize("mode", ["random", "seek"])
@@ -155,10 +195,12 @@ def test_host_kernel_matches_plain_mt25_scenes(host_lib, variant, mode):
     check_variant(host_lib, variant, mode, names=MT25_NEW)
 
 
-def check_block_dispatch(host_lib, names, per_task, mode, seed):
+def check_block_dispatch(host_lib, names, per_task, mode, seed,
+                         grasp_targets=False):
     """The kernel's per-block code over a block table at block = 8, against
     the per-env entry point (bit for bit) and the plain version."""
-    table, ids, env = _batch(near=mode == "seek", per_task=per_task, names=names)
+    table, ids, env = _batch(near=mode == "seek", per_task=per_task, names=names,
+                             grasp_targets=grasp_targets)
     n = ids.shape[0]
     blocks = cuda_step.block_table(ids.numpy(), table.features, block=8)
     assert min(blocks.blocks_by_variant) > 0

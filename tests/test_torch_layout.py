@@ -205,6 +205,23 @@ def test_mt25_block_table_matches_pallas(n_envs, block):
         [5243] * 22 + [5242] * 3 if n_envs == 131072 else [10] * 25)
 
 
+@pytest.mark.parametrize("n_envs,block", [(500, 8), (131072, 128), (131085, 128)])
+def test_mt50_block_table_matches_pallas(n_envs, block):
+    """The MT50 layout (22 tasks at 2622 slots and 28 at 2621 for N =
+    131072: 259 v0, 310 v1, 424 v2 and 31 v3 blocks) and a ragged one:
+    every env once, variants as pallas_step.block_variants gives them."""
+    ids, bt = _layout_table(n_envs, block, jbench.MT50_LIST)
+    n_pad = -(-n_envs // block) * block
+    want = pallas_step.block_variants(
+        _bench_layout_scene(n_envs, jbench.MT50_LIST), n_pad, block)
+    assert [want[f // block] for f in bt.host[:, 1]] == list(bt.host[:, 0])
+    assert sorted(bt.host[:, 1]) == list(range(0, n_envs, block))
+    assert int(bt.host[:, 2].sum()) == n_envs and bt.task_end == 50
+    if n_envs == 131072:
+        assert np.bincount(ids).tolist() == [2622] * 22 + [2621] * 28
+        assert bt.blocks_by_variant == [259, 310, 424, 31]
+
+
 def test_kernel_header_row_offsets():
     """csrc/substep.cuh's ScRow/SimRow enums are the spec's row offsets."""
     src = (CSRC / "substep.cuh").read_text()

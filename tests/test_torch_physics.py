@@ -104,13 +104,15 @@ _step_jit = jax.jit(jlanes.control_step)
 
 def check_control_step(mode, env, scene):
     """25 steps of the port's lane physics against the jitted JAX step,
-    each from the JAX state, with the eager rerun rule of the docstring."""
+    each from the JAX state, with the eager rerun rule of the docstring.
+    Returns the JAX states after each step."""
     def step_j(s, a):
         return _step_jit(scene, s, a)
     scene_t = tree_map(lambda a: convert._tensor(a, "cpu"),
                        convert.scene_from_dict(convert.as_dict(scene)))
     rng = np.random.default_rng(0)
     sim = env.sim
+    sims = []
     for t in range(25):
         act = actions(rng, env.replace(sim=sim), mode)
         sim_j = step_j(sim, jnp.asarray(act))
@@ -127,6 +129,8 @@ def check_control_step(mode, env, scene):
             assert not bad_envs(sim_e, tree_map(lambda x: x[i:i + 1], sim_t)), (
                 f"{mode} t={t} env {i}: port differs from eager JAX")
         sim = sim_j
+        sims.append(sim_j)
+    return sims
 
 
 @pytest.mark.parametrize("mode", ["random", "seek"])
