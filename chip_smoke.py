@@ -60,11 +60,27 @@ failure exits non-zero before the result line:
      kernel against its plain version for 4 control steps as in phase 3
      (<= 1e-4 per state field); then 20 fused steps each with the kernel
      and no host synchronisation, finite outputs, one launch per step and
-     obs[:, 36:39] == 0.
+     obs[:, 36:39] == 0;
+ 13. closed loop: the 50 scripted experts (metaworld_tpu_torch.evaluation.
+     ScriptedAgent) drive the MT50 layout of phase 9 with the goal tables of
+     MT50(seed=42), task_select="pseudorandom" and autoreset=False, each
+     task's slot j pinned to goal row j % 50, for 500 steps of
+     eval_action -> step with the kernel, no host synchronisation and one
+     launch per step; each slot's success is the max over the steps. Prints
+     every task's success over its 50 goal rows, the rows it failed and the
+     mean over its slots, and fails unless every task reaches the
+     reference's bar of 0.80 over the 50 goal rows, every copy of a (task,
+     goal row) ends with the same success, the outputs are finite and the
+     experts on the card agree with the CPU on the last observations (at
+     least 99.5% of rows within 1e-5); then prints the loop's wall time, ms
+     per step and env-steps/s, and the experts' share of the step from CUDA
+     events on the same inputs.
 
 The line before the last is the per-kernel JSON record, one record per
-variant and path (MT10, MT25, MT50); the last line is {"ok": true, "device": {...}}. The
-script imports nothing of JAX.
+variant and path (MT10, MT25, MT50, and the MT50 closed loop, whose
+launches are phase 13's and whose times are phase 11's on the same
+layout); the last line is {"ok": true, "device": {...}}. The script
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -93,6 +109,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 33.5e12
 TPU_KERNEL = "metaworld_tpu/physics/pallas_step.py:281"  # _make_kernel
 FLAGS_COUNTED = ("attached", "hooked", "unanchored")
+LOOP_STEPS = 500
+LOOP_GOALS = 50
+LOOP_SEED = 42
+LOOP_BAR = 0.80  # per task (tests/test_behavioral_bar.py:38-44)
 
 
 def fail(msg):
@@ -619,6 +639,131 @@ def run_ml45(dev, gen, card):
         del eng, state, out
 
 
+def count_aten_ops(fn):
+    """ATen operations one call of `fn` dispatches (about one device kernel
+    each)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def run_closed_loop(dev, card, mt50_records):
+    """Phase 13: the 50 experts drive the MT50 layout for LOOP_STEPS steps
+    through the kernel; returns the closed loop's `kernels` records (the
+    launches of this run, the times of phase 11's records on the same
+    layout)."""
+    from metaworld_tpu_torch import evaluation
+    from metaworld_tpu_torch.physics import cuda_step
+
+    names = task_names("mt50")
+    eng = bench_engine(dev, N_ENVS, "mt50", seed=LOOP_SEED,
+                       task_select="pseudorandom", autoreset=False)
+    n, n_tasks = eng.num_envs, len(names)
+    ids = eng.task_ids.long()
+    offsets = torch.from_numpy(eng._offsets[:-1]).to(dev)
+    goal_idx = ((torch.arange(n, device=dev) - offsets[ids]) % LOOP_GOALS).int()
+    agent = evaluation.ScriptedAgent(eng)
+    state, obs = eng.reset(goal_idx)
+    eng.step(state, agent.eval_action(obs))  # warm-up: fills the per-device caches
+    torch.cuda.synchronize()
+    success = torch.zeros(n, device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    cuda_step.reset_counts()
+    t0 = time.time()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(LOOP_STEPS):
+            act = agent.eval_action(obs)
+            state, out = eng.step(state, act)
+            obs = out["obs"]
+            success = torch.maximum(success, out["success"])
+            finite = finite & torch.isfinite(act).all() & torch.isfinite(obs).all()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    total = cuda_step.launches
+    launches, blocks_run = list(cuda_step.launches_by_variant), list(cuda_step.blocks_by_variant)
+
+    # each (task, goal row) has 52 or 53 copies; the bar counts each goal
+    # row once, as the reference's 50-goal sweep does, so its success is the
+    # one its copies share (checked to agree)
+    slots = torch.bincount(ids, minlength=n_tasks).float()
+    slot_mean = (torch.zeros(n_tasks, device=dev).index_add_(0, ids, success) / slots).tolist()
+    key = ids * LOOP_GOALS + goal_idx.long()
+    rows = n_tasks * LOOP_GOALS
+    lo = torch.full((rows,), 2.0, device=dev).scatter_reduce_(0, key, success, "amin")
+    hi = torch.full((rows,), -1.0, device=dev).scatter_reduce_(0, key, success, "amax")
+    copies = torch.bincount(key, minlength=rows)
+    split = ((lo != hi) & (copies > 0)).reshape(n_tasks, LOOP_GOALS)
+    solved = (hi > 0).reshape(n_tasks, LOOP_GOALS).cpu()
+    row_ok = solved.sum(1).tolist()
+    rate = [k / LOOP_GOALS for k in row_ok]
+    if int(copies.min()) == 0:
+        fail(f"closed loop: {int((copies == 0).sum())} (task, goal row) pairs have no slot")
+    for t, name in enumerate(names):
+        failed = torch.nonzero(~solved[t]).flatten().tolist()
+        print(f"[closed-loop] task {t} {name}: success {rate[t]:.4f} over {LOOP_GOALS} "
+              f"goal rows ({row_ok[t]} solved; goal rows failed {failed}); mean over "
+              f"its {int(slots[t])} slots {slot_mean[t]:.4f}; rows whose copies "
+              f"disagree {int(split[t].sum())}")
+    order = sorted(range(n_tasks), key=lambda t: (rate[t], slot_mean[t]))
+    print("[closed-loop] lowest ten: " + ", ".join(
+        f"{names[t]} {rate[t]:.4f}" for t in order[:10]))
+    print(f"[closed-loop] {card}: {n_tasks} tasks x {LOOP_GOALS} goal rows (MT50 "
+          f"seed {LOOP_SEED}), {n} envs, {LOOP_STEPS} steps of expert + step in "
+          f"{wall:.2f} s wall: {wall / LOOP_STEPS * 1e3:.2f} ms per step, "
+          f"{n * LOOP_STEPS / wall:.0f} env-steps/s; mean success "
+          f"{sum(rate) / n_tasks:.4f}, min {rate[order[0]]:.4f} ({names[order[0]]}); "
+          f"launches {total}, running each variant {launches}, "
+          f"blocks by variant {blocks_run}")
+
+    # the experts on the card against the same experts on the CPU, on the
+    # loop's last observations
+    act = agent.eval_action(obs)
+    off = (act.cpu() - agent.eval_action(obs.cpu())).abs().amax(dim=1)
+    n_off = int((off > 1e-5).sum())
+    print(f"[closed-loop experts] card vs CPU on the last {n} observations: "
+          f"{n_off} rows off by more than 1e-5, worst {float(off.max()):.3e}")
+
+    # the experts' share of the step, CUDA events on the same inputs
+    expert_ms = time_ms(lambda: agent.eval_action(obs), 20)
+    step_ms = time_ms(lambda: eng.step(state, act), 20)
+    expert_ops = count_aten_ops(lambda: agent.eval_action(obs))
+    print(f"[closed-loop time] {card}: experts {expert_ms:.3f} ms ({expert_ops} ATen "
+          f"ops), fused MT50 step {step_ms:.3f} ms on the same inputs: the experts' "
+          f"share {expert_ms / (expert_ms + step_ms):.3f}")
+
+    if not bool(finite):
+        fail("closed loop: non-finite actions or observations")
+    if not n_off <= 0.005 * n:
+        fail(f"closed loop: the experts on the card disagree with the CPU on {n_off} rows")
+    if total != LOOP_STEPS or launches != [LOOP_STEPS] * 4:
+        fail(f"closed loop: kernel launches {total} {launches}: "
+             f"expected one per step, each running blocks of every variant")
+    if blocks_run != [LOOP_STEPS * c for c in eng.block_table.blocks_by_variant]:
+        fail(f"closed loop: blocks by variant {blocks_run}")
+    if bool(split.any()):
+        t = int(split.sum(1).argmax())
+        fail(f"closed loop: copies of a goal row end with different success "
+             f"({int(split.sum())} rows; {names[t]} has {int(split[t].sum())})")
+    below = [(names[t], rate[t]) for t in range(n_tasks)
+             if not row_ok[t] >= LOOP_BAR * LOOP_GOALS]
+    if below:
+        fail(f"closed loop: tasks below the bar of {LOOP_BAR}: {below}")
+    return [dict(rec, path="mt50 closed loop", launches=launches[v])
+            for v, rec in enumerate(mt50_records)]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -722,14 +867,18 @@ def main():
 
     # ---- 6-8. MT25; 9-11. MT50 ----
     kernels += run_path("mt25", dev, gen, card, 3, 75, fused_ms)
-    kernels += run_path(
+    mt50 = run_path(
         "mt50", dev, gen, card, 5, 100, fused_ms,
         must_see=(("unanchored", "peg-unplug-side-v3"), ("attached", "hammer-v3"),
                   ("hooked", "handle-pull-v3"), ("hooked", "handle-pull-side-v3")))
+    kernels += mt50
 
     # ---- 12. ML45, both splits ----
     gen.manual_seed(7)
     run_ml45(dev, gen, card)
+
+    # ---- 13. the 50 experts in closed loop on MT50 ----
+    kernels += run_closed_loop(dev, card, mt50)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

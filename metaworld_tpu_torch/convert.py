@@ -6,7 +6,8 @@ included, without importing JAX); the `*_from_dict` functions build the
 port's containers from such dicts on a device, and `as_dict` turns the
 port's containers back into dicts. Fields the port does not keep are
 dropped on the way in: `EnvState.rng` and the fused state's `key` (the
-port draws from `torch.Generator`s instead).
+port draws from `torch.Generator`s instead). The scripted experts
+(`policies`) have no parameters, so nothing is carried for them.
 """
 
 from __future__ import annotations

@@ -1,0 +1,23 @@
+"""Scripted policy for plate-slide-side-v3 (ref policies/sawyer_plate_slide_side_v3_policy.py)."""
+
+from __future__ import annotations
+
+import torch
+
+from metaworld_tpu_torch.envs.tasks.common import vec3
+from metaworld_tpu_torch.policies import register_policy
+from metaworld_tpu_torch.policies.base import action, const, move, norm, parse_obs, select
+
+
+@register_policy("plate-slide-side-v3")
+def plate_slide_side_v3_policy(obs):
+    o = parse_obs(obs)
+    hand = o["hand_pos"]
+    puck = o["obj1_pos"] + const(obs, 0.07, 0.0, -0.005)
+    desired = select(
+        (norm(hand[:, :2] - puck[:, :2]) > 0.04, puck + const(obs, 0.0, 0.0, 0.1)),
+        (torch.abs(hand[:, 2] - puck[:, 2]) > 0.04, puck),
+        (hand[:, 0] > -0.2, vec3(hand[:, 0] - 0.1, 0.6, hand[:, 2])),
+        default=puck + const(obs, -0.1, 0.0, 0.0),
+    )
+    return action(move(hand, desired, p=25.0), 1.0)

@@ -52,11 +52,11 @@ TASK_SETS = {"mt10": benchmarks.MT10, "mt25": benchmarks.MT25,
              "mt50": benchmarks.MT50}
 
 
-def bench_engine(dev, n_envs, tasks="mt10", **kw) -> vector.FusedBatchedEnvs:
+def bench_engine(dev, n_envs, tasks="mt10", seed=0, **kw) -> vector.FusedBatchedEnvs:
     """A task set as bench.py lays out MT10: one-hot ids, `n_envs` slots
-    split evenly over its tasks (the remainder to the first); `kw` goes to
-    FusedBatchedEnvs."""
-    bench = TASK_SETS[tasks](seed=0)
+    split evenly over its tasks (the remainder to the first), goal tables
+    of the benchmark made with `seed`; `kw` goes to FusedBatchedEnvs."""
+    bench = TASK_SETS[tasks](seed=seed)
     names = list(bench.train_classes.keys())
     base, rem = divmod(n_envs, len(names))
     counts = [base + (1 if i < rem else 0) for i in range(len(names))]

@@ -147,3 +147,18 @@ def test_ml_test_split_kernel_matches_plain_physics_without_sync(device):
             np.testing.assert_allclose(ok[k].double().cpu().numpy(),
                                        op[k].double().cpu().numpy(),
                                        rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_experts_on_the_card_match_the_cpu(device):
+    """Every expert on the card against the same expert on the CPU, on its
+    golden observations: equal, the thresholds' norm included."""
+    import pathlib
+
+    from metaworld_tpu_torch.policies import get_policy, implemented_policies
+
+    golden = pathlib.Path(__file__).parent / "golden"
+    for name in implemented_policies():
+        obs = torch.from_numpy(np.load(golden / f"{name}.npz")["obs"].astype(np.float32))
+        pol = get_policy(name)
+        torch.testing.assert_close(pol(obs.to(device)).cpu(), pol(obs), rtol=0, atol=0,
+                                   msg=name)

@@ -26,8 +26,15 @@ def _imported(tree):
 def test_port_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"vector.py", "physics/cuda_step.py", "physics/engine_lanes.py",
-            "envs/core.py", "convert.py"} <= names
-    assert len([p for p in MODULES if p.name.endswith("_v3.py")]) == 50
+            "envs/core.py", "convert.py", "policies/base.py",
+            "evaluation.py"} <= names
+    tasks = [p for p in MODULES if p.parent == PKG / "envs" / "tasks"
+             and p.name.endswith("_v3.py")]
+    experts = [p for p in MODULES if p.parent == PKG / "policies"
+               and p.name.startswith("impl_") and p.name.endswith("_v3.py")]
+    assert len(tasks) == 50
+    assert len(experts) == 50
+    assert {p.name for p in experts} == {"impl_" + p.name for p in tasks}
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: p.relative_to(PKG).as_posix())
@@ -41,6 +48,9 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import metaworld_tpu_torch.vector, metaworld_tpu_torch.convert\n"
+        "import metaworld_tpu_torch.evaluation\n"
+        "from metaworld_tpu_torch.policies import implemented_policies\n"
+        "assert len(implemented_policies()) == 50\n"
         "import metaworld_tpu_torch.benchmarks as b\n"
         "b.MT10(seed=0, num_goals=2)\n"
         "b.MT25(seed=0, num_goals=2)\n"
