@@ -75,20 +75,53 @@ failure exits non-zero before the result line:
      least 99.5% of rows within 1e-5); then prints the loop's wall time, ms
      per step and env-steps/s, and the experts' share of the step from CUDA
      events on the same inputs.
+ 14. evaluation(): `evaluation.evaluation(ScriptedAgent, envs,
+     num_episodes=1, vstate=...)` on phase 13's layout and goal rows (MT50,
+     N = 131072), now with terminate_on_success and autoreset; every
+     task's success must equal phase 13's mean over its slots within 1e-6
+     (the first episode ends at the first success or is truncated at step
+     500, as phase 13's running max over 500 steps), one launch per step
+     running every variant, finite outputs. Prints mean_success,
+     mean_returns, the steps, ms per step and host syncs per step (the
+     warnings of set_sync_debug_mode("warn")).
+ 15. metalearning_evaluation() on ML45's test split through
+     `make_ml_envs_test("ML45", seed=0, meta_batch_size=131070)` (5 x
+     26214 slots, goal hidden), with the experts as a meta-agent whose
+     init and adapt count their calls: 2 rounds of one adaptation episode
+     and one evaluation episode. Gates: init and adapt called twice, each
+     buffer at least one transition; each round evaluates on the goal rows
+     it adapted on, and every slot's row differs between the rounds;
+     obs[:, 36:39] == 0 and finite outputs; one launch per step. Prints
+     per-task success, the steps, the wall time, the peak device memory
+     and sample_tasks' host time.
+ 16. the wrapper stack: `make_mt_envs("MT10", envs_per_task=13107,
+     use_one_hot=True, max_episode_steps=20, reward_normalization_method=
+     "gymnasium", normalize_observations=True, recurrent_info_in_obs=True)`
+     (N = 131070, obs (131070, 55), random task select): 60 steps of
+     seeded random actions with no host sync and one launch per step,
+     finite outputs and running statistics; a checkpoint (state, the three
+     wrapper states and the engine's generator) after step 20, and the 40
+     steps after it re-run from its restore, bit-equal in obs, reward and
+     done across the random-draw autoresets; 10 steps with the exponential
+     reward norm. Prints the pipeline's step against the bare fused step
+     (CUDA events, in turns) and the checkpoint's size.
 
 The line before the last is the per-kernel JSON record, one record per
-variant and path (MT10, MT25, MT50, and the MT50 closed loop, whose
-launches are phase 13's and whose times are phase 11's on the same
-layout); the last line is {"ok": true, "device": {...}}. The script
-imports nothing of JAX.
+variant and path (MT10, MT25, MT50; the MT50 closed loop and the MT50
+evaluation, whose launches are phases 13's and 14's and whose times are
+phase 11's on the same layout; the ML45 test split's metalearning and
+the MT10 pipeline, timed on their own layouts); the last line is
+{"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -113,6 +146,12 @@ LOOP_STEPS = 500
 LOOP_GOALS = 50
 LOOP_SEED = 42
 LOOP_BAR = 0.80  # per task (tests/test_behavioral_bar.py:38-44)
+ML45_META_BATCH = 131070
+PIPE_PER_TASK = 13107  # MT10 x 13107 = 131070 slots
+PIPE_EPISODE = 20
+PIPE_STEPS = 60
+PIPE_CKPT = 20
+PIPE_EXP_STEPS = 10
 
 
 def fail(msg):
@@ -386,7 +425,7 @@ def fused_small(dev, gen, path, n):
     small_k = bench_engine(dev, n, path, **kw)
     small_p = bench_engine(dev, n, path, physics="torch", **kw)
     goal_idx = torch.arange(n, device=dev, dtype=torch.int32) % 50
-    sk, _ = small_k.reset(goal_idx)
+    sk, _ = small_k.reset(goal_idx=goal_idx)
     worst = {}
     for t in range(12):
         act = torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
@@ -510,9 +549,10 @@ def control_step_bound(eng, ops):
             / HBM_BYTES_PER_S * 1e3, total_ops / F32_OPS_PER_S * 1e3)
 
 
+@functools.cache
 def count_ops(path):
     """Per-variant operation count of `path`, printed with its spread over
-    the path's tasks."""
+    the path's tasks (counted once per run)."""
     per_task = ops_per_env_substep(path)
     ops = {}
     for v, counts in per_task.items():
@@ -585,11 +625,13 @@ def run_ml45(dev, gen, card):
     hidden. On each split's layout, with its ragged last block, the kernel
     against its plain version for 4 control steps; then 20 fused steps
     with the kernel and no host synchronisation, finite outputs, one
-    launch per step and a zero goal block in every observation."""
+    launch per step and a zero goal block in every observation. Returns
+    each split's kernel-vs-plain max abs error by variant."""
     from metaworld_tpu_torch import benchmarks, vector
     from metaworld_tpu_torch.physics import cuda_step
 
     bench = benchmarks.ML45(seed=0)
+    errs_by_split = {}
     for split, kw in (("train", {}), ("test", dict(terminate_on_success=True))):
         per_task = ML45_PER_TASK[split]
         eng = vector.from_benchmark(bench, split=split, envs_per_task=per_task,
@@ -599,7 +641,8 @@ def run_ml45(dev, gen, card):
               f"envs; one launch of {h.shape[0]} blocks, by variant "
               f"{eng.block_table.blocks_by_variant}; env counts of the blocks "
               f"{sorted({int(c) for c in h[:, 2]})}")
-        errs = hold_steps(eng, dev, gen, ML45_HOLD_STEPS, f"ml45 {split}-vs-plain")
+        errs = errs_by_split[split] = hold_steps(eng, dev, gen, ML45_HOLD_STEPS,
+                                                 f"ml45 {split}-vs-plain")
         print(f"[ml45 {split}-vs-plain] {ML45_HOLD_STEPS} steps x {n} envs: max "
               f"err by variant {['%.3e' % e for e in errs]}")
         state, obs = eng.reset()
@@ -637,6 +680,7 @@ def run_ml45(dev, gen, card):
         if tuple(out["obs"].shape) != (n, 39):
             fail(f"ml45 {split}: obs shape {tuple(out['obs'].shape)}")
         del eng, state, out
+    return errs_by_split
 
 
 def count_aten_ops(fn):
@@ -656,11 +700,19 @@ def count_aten_ops(fn):
     return Count.n
 
 
+def loop_goal_rows(eng):
+    """Slot j of each task on goal row j % LOOP_GOALS (phases 13 and 14)."""
+    dev = eng.device
+    offsets = torch.from_numpy(eng._offsets[:-1]).to(dev)
+    slot = torch.arange(eng.num_envs, device=dev)
+    return ((slot - offsets[eng.task_ids.long()]) % LOOP_GOALS).int()
+
+
 def run_closed_loop(dev, card, mt50_records):
     """Phase 13: the 50 experts drive the MT50 layout for LOOP_STEPS steps
     through the kernel; returns the closed loop's `kernels` records (the
     launches of this run, the times of phase 11's records on the same
-    layout)."""
+    layout) and each task's success as the mean over its slots."""
     from metaworld_tpu_torch import evaluation
     from metaworld_tpu_torch.physics import cuda_step
 
@@ -669,10 +721,9 @@ def run_closed_loop(dev, card, mt50_records):
                        task_select="pseudorandom", autoreset=False)
     n, n_tasks = eng.num_envs, len(names)
     ids = eng.task_ids.long()
-    offsets = torch.from_numpy(eng._offsets[:-1]).to(dev)
-    goal_idx = ((torch.arange(n, device=dev) - offsets[ids]) % LOOP_GOALS).int()
+    goal_idx = loop_goal_rows(eng)
     agent = evaluation.ScriptedAgent(eng)
-    state, obs = eng.reset(goal_idx)
+    state, obs = eng.reset(goal_idx=goal_idx)
     eng.step(state, agent.eval_action(obs))  # warm-up: fills the per-device caches
     torch.cuda.synchronize()
     success = torch.zeros(n, device=dev)
@@ -761,7 +812,305 @@ def run_closed_loop(dev, card, mt50_records):
     if below:
         fail(f"closed loop: tasks below the bar of {LOOP_BAR}: {below}")
     return [dict(rec, path="mt50 closed loop", launches=launches[v])
+            for v, rec in enumerate(mt50_records)], slot_mean
+
+
+class Counted:
+    """Delegates to an engine; counts its steps, records the pinned goal
+    rows of every reset and checks, on the device, that every observation
+    is finite and (with `hidden`) that its goal block is zero; times
+    `sample_tasks` on the host."""
+
+    def __init__(self, envs, hidden=False):
+        self.envs = envs
+        self.hidden = hidden
+        self.steps = 0
+        self.goal_rows = []
+        self.sample_s = []
+        self.ok = torch.ones((), dtype=torch.bool, device=envs.device)
+
+    def __getattr__(self, name):
+        return getattr(self.envs, name)
+
+    def _check(self, obs, *more):
+        ok = torch.isfinite(obs).all()
+        for t in more:
+            ok = ok & torch.isfinite(t).all()
+        if self.hidden:
+            ok = ok & (obs[:, 36:39] == 0).all()
+        self.ok = self.ok & ok
+
+    def reset(self, *args, **kwargs):
+        state, obs = self.envs.reset(*args, **kwargs)
+        self.goal_rows.append(state.goal_idx.clone())
+        self._check(obs)
+        return state, obs
+
+    def step(self, state, actions):
+        self.steps += 1
+        state, out = self.envs.step(state, actions)
+        self._check(out["obs"], out["reward"], out["episode_return"])
+        return state, out
+
+    def sample_tasks(self, state):
+        t0 = time.time()
+        state = self.envs.sample_tasks(state)
+        self.sample_s.append(time.time() - t0)
+        return state
+
+
+def count_syncs(fn):
+    """(fn's result, the host synchronisations it made), counted from the
+    warnings of torch.cuda.set_sync_debug_mode("warn")."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return result, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def run_evaluation(dev, card, slot_mean, mt50_records):
+    """Phase 14: evaluation() with the 50 experts on phase 13's layout and
+    goal rows, pinned through vstate, terminate_on_success and autoreset:
+    each task's success must equal phase 13's mean over its slots."""
+    from metaworld_tpu_torch import evaluation
+    from metaworld_tpu_torch.physics import cuda_step
+
+    t_phase = time.time()
+    names = task_names("mt50")
+    eng = Counted(bench_engine(dev, N_ENVS, "mt50", seed=LOOP_SEED,
+                               task_select="pseudorandom",
+                               terminate_on_success=True, autoreset=True))
+    vstate, _ = eng.reset(goal_idx=loop_goal_rows(eng))
+    agent = evaluation.ScriptedAgent(eng.envs)
+    torch.cuda.synchronize()
+    eng.steps = 0
+    cuda_step.reset_counts()
+    t0 = time.time()
+    (mean_s, mean_r, per_s, per_r), syncs = count_syncs(
+        lambda: evaluation.evaluation(agent, eng, num_episodes=1, vstate=vstate))
+    wall = time.time() - t0
+    launches, blocks_run = list(cuda_step.launches_by_variant), list(cuda_step.blocks_by_variant)
+    steps = eng.steps
+    worst = max(abs(per_s[name] - slot_mean[t]) for t, name in enumerate(names))
+    for t, name in enumerate(names):
+        print(f"[evaluation] task {t} {name}: success {per_s[name]:.4f} (phase 13 slot "
+              f"mean {slot_mean[t]:.4f}), returns {per_r[name]:.2f}")
+    print(f"[evaluation] {card}: MT50, {eng.num_envs} envs, num_episodes=1: "
+          f"mean_success {mean_s:.4f}, mean_returns {mean_r:.4f}; {steps} steps in "
+          f"{wall:.2f} s wall, {wall / steps * 1e3:.2f} ms per step; host syncs "
+          f"{syncs} ({syncs / steps:.3f} per step); launches {cuda_step.launches}, "
+          f"running each variant {launches}; largest difference from phase 13 "
+          f"{worst:.3e}; phase {time.time() - t_phase:.1f} s")
+    if not bool(eng.ok):
+        fail("evaluation: non-finite outputs")
+    if cuda_step.launches != steps or launches != [steps] * 4:
+        fail(f"evaluation: kernel launches {cuda_step.launches} {launches} for {steps} steps")
+    if blocks_run != [steps * c for c in eng.block_table.blocks_by_variant]:
+        fail(f"evaluation: blocks by variant {blocks_run}")
+    if not worst <= 1e-6:
+        fail(f"evaluation: per-task success differs from phase 13's by {worst:.3e}")
+    return [dict(rec, path="mt50 evaluation", launches=launches[v])
             for v, rec in enumerate(mt50_records)]
+
+
+class ScriptedMetaAgent:
+    """The experts as a meta-learner: ScriptedAgent actions when adapting
+    and evaluating; init and adapt count their calls and adapt keeps the
+    length of each buffer it is given."""
+
+    def __init__(self, envs):
+        from metaworld_tpu_torch import evaluation
+
+        self.scripted = evaluation.ScriptedAgent(envs)
+        self.inits = 0
+        self.buffers = []
+
+    def init(self):
+        self.inits += 1
+
+    def adapt_action(self, obs):
+        return self.scripted.eval_action(obs)
+
+    eval_action = adapt_action
+
+    def adapt(self, timesteps):
+        self.buffers.append(len(timesteps))
+
+    def reset(self, env_mask):
+        pass
+
+
+def run_metalearning(dev, card, gen, errs):
+    """Phase 15: metalearning_evaluation() on ML45's test split through
+    make_ml_envs_test (5 x 26214 slots, goal hidden), 2 rounds of one
+    adaptation episode and one evaluation episode."""
+    import metaworld_tpu_torch as mw
+    from metaworld_tpu_torch import evaluation
+    from metaworld_tpu_torch.physics import cuda_step
+
+    t_phase = time.time()
+    envs = mw.make_ml_envs_test("ML45", seed=0, meta_batch_size=ML45_META_BATCH,
+                                device=dev)
+    eng = Counted(envs, hidden=True)
+    agent = ScriptedMetaAgent(envs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_step.reset_counts()
+    t0 = time.time()
+    mean_s, mean_r, per_task = evaluation.metalearning_evaluation(
+        agent, eng, num_evals=2, adaptation_steps=1, adaptation_episodes=1,
+        num_episodes=1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = list(cuda_step.launches_by_variant)
+    g = eng.goal_rows  # the first reset, then (adaptation, evaluation) per round
+    print(f"[metalearning] {card}: ML45 test, {eng.num_envs} envs: per-task success "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per_task.items())
+          + f"; mean success {mean_s:.4f}, mean returns {mean_r:.4f}; {eng.steps} "
+          f"steps in {wall:.2f} s wall ({wall / eng.steps * 1e3:.2f} ms per step); "
+          f"adaptation buffers {agent.buffers}; peak memory {peak / 2**30:.2f} GiB; "
+          f"sample_tasks host time {['%.3f s' % x for x in eng.sample_s]}; launches "
+          f"{cuda_step.launches}, by variant {launches}; phase "
+          f"{time.time() - t_phase:.1f} s")
+    if agent.inits != 2 or len(agent.buffers) != 2 or min(agent.buffers) < 1:
+        fail(f"metalearning: init called {agent.inits} times, adapt buffers {agent.buffers}")
+    if len(g) != 5:
+        fail(f"metalearning: {len(g)} resets, expected 5")
+    for rnd in range(2):
+        if not torch.equal(g[1 + 2 * rnd], g[2 + 2 * rnd]):
+            fail(f"metalearning: round {rnd} evaluated on other goal rows than it adapted on")
+    if not bool((g[1] != g[3]).all()):
+        fail(f"metalearning: {int((g[1] == g[3]).sum())} slots kept their goal row across rounds")
+    if not bool(eng.ok):
+        fail("metalearning: non-finite outputs, or a goal block that is not zero")
+    if cuda_step.launches != eng.steps:
+        fail(f"metalearning: {cuda_step.launches} kernel launches for {eng.steps} steps")
+    ops = count_ops("mt50")  # ML45's tasks are MT50's; op counts per variant
+    return variant_records(envs, dev, torch.rand(envs.num_envs, 4, generator=gen,
+                                                 device=dev) * 2 - 1,
+                           ops, "ml45 test metalearning", launches, errs, card)
+
+
+def run_pipeline(dev, card, gen):
+    """Phase 16: the wrapper stack on MT10 through make_mt_envs (131070
+    slots, obs (131070, 55), random task select, 20-step episodes): 60
+    steps with no host sync, a checkpoint after step 20 and a bit-equal
+    re-run of the next 40 steps from its restore, then 10 steps with the
+    exponential reward norm; the pipeline's step against the bare fused
+    step."""
+    import metaworld_tpu_torch as mw
+    from metaworld_tpu_torch import wrappers
+    from metaworld_tpu_torch.physics import cuda_step
+
+    t_phase = time.time()
+    kw = dict(normalize_observations=True, recurrent_info_in_obs=True)
+    pipe = mw.make_mt_envs("MT10", seed=0, envs_per_task=PIPE_PER_TASK,
+                           use_one_hot=True, max_episode_steps=PIPE_EPISODE,
+                           reward_normalization_method="gymnasium", device=dev, **kw)
+    n = pipe.num_envs
+    errs = hold_steps(pipe.envs, dev, gen, ML45_HOLD_STEPS, "mt10 pipeline-vs-plain")
+    acts = [torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
+            for _ in range(PIPE_STEPS)]
+    state, obs = pipe.reset(seed=0)
+    pipe.step(state, acts[0])  # warm-up: fills the per-device caches
+    state, obs = pipe.reset(seed=0)
+    if tuple(obs.shape) != (n, 55):
+        fail(f"pipeline: obs shape {tuple(obs.shape)}")
+    finite = torch.isfinite(obs).all()
+
+    def run(state, steps, outs=None):
+        nonlocal finite
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in steps:
+                state, out = pipe.step(state, acts[t])
+                finite = finite & torch.isfinite(out["obs"]).all() & torch.isfinite(
+                    out["reward"]).all()
+                if outs is not None:
+                    outs.append((out["obs"], out["reward"], out["done"]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return state
+
+    torch.cuda.synchronize()
+    cuda_step.reset_counts()
+    t0 = time.time()
+    state = run(state, range(PIPE_CKPT))
+    torch.cuda.synchronize()
+    t_ckpt = time.time()
+    blob = wrappers.checkpoint(state[0], state[1:], envs=pipe)
+    t_ckpt = time.time() - t_ckpt
+    ref = []
+    end = run(state, range(PIPE_CKPT, PIPE_STEPS), ref)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    total, launches = cuda_step.launches, list(cuda_step.launches_by_variant)
+    dones = int(sum(int(o[2].sum()) for o in ref))
+    stats = [end[1].stat.mean, end[1].stat.var, end[2].stat.mean, end[2].stat.var]
+    stats_ok = all(bool(torch.isfinite(x).all()) for x in stats)
+
+    vstate, wstates = wrappers.restore(state[0], blob, state[1:], envs=pipe)
+    again = []
+    cuda_step.reset_counts()
+    run((vstate, *wstates), range(PIPE_CKPT, PIPE_STEPS), again)
+    torch.cuda.synchronize()
+    rerun_launches = cuda_step.launches
+    equal = all(torch.equal(x, y) for a, b in zip(ref, again) for x, y in zip(a, b))
+
+    # the exponential reward norm on the same engine
+    pipe_e = wrappers.EnvPipeline(pipe.envs, reward_normalization_method="exponential", **kw)
+    state_e, _ = pipe_e.reset(seed=1)
+    cuda_step.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(PIPE_EXP_STEPS):
+            state_e, out_e = pipe_e.step(state_e, acts[t])
+            finite = finite & torch.isfinite(out_e["obs"]).all() & torch.isfinite(
+                out_e["reward"]).all()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    exp_launches = cuda_step.launches
+
+    turns = [(name, time_ms(fn, 20)) for name, fn in (
+        ("pipeline", lambda: pipe.step(end, acts[0])),
+        ("bare", lambda: pipe.envs.step(end[0], acts[0])),
+        ("bare", lambda: pipe.envs.step(end[0], acts[0])),
+        ("pipeline", lambda: pipe.step(end, acts[0])))]
+    pipe_ms = sum(ms for name, ms in turns if name == "pipeline") / 2
+    bare_ms = sum(ms for name, ms in turns if name == "bare") / 2
+    print(f"[pipeline] {card}: MT10 via make_mt_envs, {n} envs, obs "
+          f"{tuple(ref[0][0].shape)}: {PIPE_STEPS} steps with no host sync in "
+          f"{wall - t_ckpt:.2f} s wall, dones in steps {PIPE_CKPT}-{PIPE_STEPS - 1} "
+          f"{dones}; launches {total}, by variant {launches}; checkpoint "
+          f"{len(blob)} bytes in {t_ckpt:.2f} s; restored re-run of {len(again)} steps "
+          f"bit-equal {equal} ({rerun_launches} launches); running stats finite "
+          f"{stats_ok}; exponential norm {PIPE_EXP_STEPS} steps ({exp_launches} "
+          f"launches); phase {time.time() - t_phase:.1f} s")
+    print(f"[pipeline time] {card}: in turns "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in turns)
+          + f": pipeline step {pipe_ms:.3f} ms against the bare fused step "
+          f"{bare_ms:.3f} ms on the same inputs (wrappers {pipe_ms - bare_ms:.3f} ms)")
+    if not bool(finite):
+        fail("pipeline: non-finite outputs")
+    if not stats_ok:
+        fail("pipeline: non-finite running statistics")
+    if total != PIPE_STEPS or launches != [PIPE_STEPS] * 4:
+        fail(f"pipeline: kernel launches {total} {launches} for {PIPE_STEPS} steps")
+    if rerun_launches != PIPE_STEPS - PIPE_CKPT or exp_launches != PIPE_EXP_STEPS:
+        fail(f"pipeline: launches {rerun_launches} (re-run), {exp_launches} (exponential)")
+    if dones < n:
+        fail(f"pipeline: only {dones} dones after the checkpoint: the window must "
+             f"cross autoresets")
+    if not equal:
+        fail("pipeline: the run restored from the checkpoint is not bit-equal")
+    return variant_records(pipe.envs, dev, acts[0], count_ops("mt10"), "mt10 pipeline",
+                           launches, errs, card)
 
 
 def main():
@@ -875,10 +1224,20 @@ def main():
 
     # ---- 12. ML45, both splits ----
     gen.manual_seed(7)
-    run_ml45(dev, gen, card)
+    ml45_errs = run_ml45(dev, gen, card)
 
     # ---- 13. the 50 experts in closed loop on MT50 ----
-    kernels += run_closed_loop(dev, card, mt50)
+    t0 = time.time()
+    loop_records, slot_mean = run_closed_loop(dev, card, mt50)
+    kernels += loop_records
+    print(f"[closed-loop] phase {time.time() - t0:.1f} s")
+
+    # ---- 14-16. evaluation(), metalearning_evaluation(), the pipeline ----
+    kernels += run_evaluation(dev, card, slot_mean, mt50)
+    gen.manual_seed(15)
+    kernels += run_metalearning(dev, card, gen, ml45_errs["test"])
+    gen.manual_seed(16)
+    kernels += run_pipeline(dev, card, gen)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

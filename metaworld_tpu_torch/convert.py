@@ -8,6 +8,11 @@ port's containers back into dicts. Fields the port does not keep are
 dropped on the way in: `EnvState.rng` and the fused state's `key` (the
 port draws from `torch.Generator`s instead). The scripted experts
 (`policies`) have no parameters, so nothing is carried for them.
+
+The wrapper states (`wrappers.RunningStat`, the reward and observation
+norm states and the RNN meta-RL state) carry over field for field, so a
+port `EnvPipeline` can continue a JAX pipeline's run
+(`pipeline_state_from_dicts`).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from metaworld_tpu_torch import wrappers
 from metaworld_tpu_torch.types import EnvState, SceneParams, SimState
 
 _DROP = ("rng", "key")
@@ -73,3 +79,36 @@ def fused_from_dict(d: dict, device="cuda"):
 
     return _build(FusedState, d, device,
                   nested={"env": EnvState, "sim": SimState})
+
+
+def running_stat_from_dict(d: dict, device="cuda") -> wrappers.RunningStat:
+    return _build(wrappers.RunningStat, d, device)
+
+
+def reward_norm_from_dict(d: dict, device="cuda"):
+    """A discounted (`returns`, `stat`) or exponential (`mean`, `var`,
+    `initialized`) reward-norm state, told apart by its fields."""
+    if "stat" in d:
+        return _build(wrappers.DiscountedRewardNormState, d, device,
+                      nested={"stat": wrappers.RunningStat})
+    return _build(wrappers.ExponentialRewardNormState, d, device)
+
+
+def obs_norm_from_dict(d: dict, device="cuda") -> wrappers.ObservationNormState:
+    return _build(wrappers.ObservationNormState, d, device,
+                  nested={"stat": wrappers.RunningStat})
+
+
+def rnn_state_from_dict(d: dict, device="cuda") -> wrappers.RNNMetaRLState:
+    return _build(wrappers.RNNMetaRLState, d, device)
+
+
+def pipeline_state_from_dicts(vstate, rnorm, onorm, rnn, device="cuda"):
+    """The state tuple of `wrappers.EnvPipeline` from the four parts of a
+    JAX pipeline's state as dicts (`as_dict`); a part that is None (its
+    wrapper is off) stays None."""
+    def opt(fn, d):
+        return None if d is None else fn(d, device)
+
+    return (fused_from_dict(vstate, device), opt(reward_norm_from_dict, rnorm),
+            opt(obs_norm_from_dict, onorm), opt(rnn_state_from_dict, rnn))

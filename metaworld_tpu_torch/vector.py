@@ -14,9 +14,11 @@ of the JAX package). Differences in form, not in result:
     and observations per (task, goal row) at construction and every step
     gathers the pending slots' rows and selects them with `torch.where`.
   * Random goal draws come from a `torch.Generator` on the engine's device;
-    there are no per-slot PRNG keys. `task_select="pseudorandom"` pins each
-    slot to `goal_idx`, which lets a test pin both implementations to the
-    same rows.
+    there are no per-slot PRNG keys, and `reset(seed=...)` reseeds the
+    generator where the JAX engine takes a key. `task_select="pseudorandom"`
+    pins each slot to `goal_idx`, which lets a test pin both implementations
+    to the same rows; `sample_tasks` advances the pinned rows with the JAX
+    engine's host RNG and draw order, so its sequence is the JAX engine's.
 
 `terminate_on_success` and `autoreset` take the JAX engine's meaning: a
 success terminates the episode, and without autoreset no slot is ever
@@ -110,6 +112,11 @@ class FusedBatchedEnvs:
         self._offsets = np.cumsum([0] + self.counts)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(seed)
+        self._n_goals = [int(np.asarray(t).shape[0]) for t in goal_tables]
+        # sample_tasks' host RNG and per-group cursors (JAX vector.py:97-99)
+        self._prg_rng = np.random.default_rng(0)
+        self._prg_perm = [None] * len(self.specs)
+        self._prg_cursor = [None] * len(self.specs)
 
         slot_task = np.repeat(np.arange(len(specs)), self.counts)
         self.task_ids = torch.from_numpy(slot_task.astype(np.int32)).to(dev)
@@ -138,7 +145,7 @@ class FusedBatchedEnvs:
         engine_lanes._reach_tables(dev)
 
         # reset table: one reset state + observation per (task, goal row)
-        n_goals = [int(np.asarray(t).shape[0]) for t in goal_tables]
+        n_goals = self._n_goals
         goal_off = np.cumsum([0] + n_goals)[:-1]
         envs, obss = [], []
         for i, spec in enumerate(self.specs):
@@ -152,6 +159,42 @@ class FusedBatchedEnvs:
         self._slot_goal_off = torch.from_numpy(goal_off[slot_task]).to(dev)
         self._slot_goal_n = torch.from_numpy(
             np.asarray(n_goals)[slot_task].astype(np.float32)).to(dev)
+
+    @property
+    def task_names(self) -> list[str]:
+        return [s.name for s in self.specs]
+
+    def env_task_names(self) -> list[str]:
+        """The task name of every slot, in slot order."""
+        out = []
+        for s, c in zip(self.specs, self.counts):
+            out.extend([s.name] * c)
+        return out
+
+    def sample_tasks(self, state: FusedState) -> FusedState:
+        """Advance every slot's pinned goal row: each slot cycles through its
+        own shuffled permutation of its task's goal table and draws a new
+        permutation when it wraps (JAX vector.py:178-206). Host bookkeeping
+        with the JAX engine's RNG (`default_rng(0)` per engine) and draw
+        order: per group, one permutation per slot at first use, then one
+        per wrapping slot in slot order. Returns `state` with the new rows;
+        they take effect at the next reset."""
+        assert self.task_select == "pseudorandom"
+        idx_groups = []
+        for i, count in enumerate(self.counts):
+            n_goals = self._n_goals[i]
+            if self._prg_perm[i] is None:
+                self._prg_perm[i] = np.stack([
+                    self._prg_rng.permutation(n_goals) for _ in range(count)])
+                self._prg_cursor[i] = np.zeros(count, dtype=np.int64)
+            perm, cursor = self._prg_perm[i], self._prg_cursor[i]
+            for j in np.flatnonzero(cursor >= n_goals):
+                perm[j] = self._prg_rng.permutation(n_goals)
+                cursor[j] = 0
+            idx_groups.append(perm[np.arange(count), cursor].astype(np.int32))
+            cursor += 1
+        goal_idx = torch.from_numpy(np.concatenate(idx_groups)).to(self.device)
+        return state.replace(goal_idx=goal_idx)
 
     # ------------------------------------------------------------------
     def _augment(self, obs):
@@ -171,10 +214,22 @@ class FusedBatchedEnvs:
                                   self._slot_goal_n - 1.0).long()
         return self._slot_goal_off + local
 
-    def reset(self, goal_idx=None):
-        """Fresh reset of every slot. `goal_idx` (n,) pins the goal rows
-        under task_select="pseudorandom". Returns (state, obs)."""
+    def reset(self, seed: int | None = None, vstate: FusedState | None = None,
+              goal_idx=None):
+        """Fresh reset of every slot. Returns (state, obs).
+
+        `seed` reseeds the engine's generator (the JAX engine's `key`): the
+        goal draws of task_select="random" come from it. `vstate` keeps that
+        state's pinned goal rows (the JAX `reset(key, vstate=...)`), and
+        `goal_idx` (n,) gives them directly; with neither, every slot is
+        pinned to row 0. The pinned rows are used under
+        task_select="pseudorandom"."""
         n = self.num_envs
+        if seed is not None:
+            self._gen.manual_seed(seed)
+        if vstate is not None:
+            assert goal_idx is None, "pass vstate or goal_idx, not both"
+            goal_idx = vstate.goal_idx
         if goal_idx is None:
             goal_idx = torch.zeros(n, dtype=torch.int32, device=self.device)
         goal_idx = goal_idx.to(device=self.device, dtype=torch.int32)

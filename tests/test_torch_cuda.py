@@ -87,7 +87,7 @@ def test_fused_step_kernel_matches_plain_physics_without_sync(device):
     kw = dict(max_episode_steps=4, task_select="pseudorandom")
     ek, ep = _engine(device, 6, **kw), _engine(device, 6, physics="torch", **kw)
     goal_idx = torch.arange(ek.num_envs, device=device, dtype=torch.int32) % 5
-    sk, _ = ek.reset(goal_idx)
+    sk, _ = ek.reset(goal_idx=goal_idx)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     acts = [torch.rand(ek.num_envs, 4, generator=gen, device=device) * 2 - 1
@@ -123,7 +123,7 @@ def test_ml_test_split_kernel_matches_plain_physics_without_sync(device):
     ep = vector.from_benchmark(bench, physics="torch", **kw)
     assert ek.physics == "cuda"
     goal_idx = torch.arange(ek.num_envs, device=device, dtype=torch.int32) % 5
-    s, obs = ek.reset(goal_idx)
+    s, obs = ek.reset(goal_idx=goal_idx)
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     acts = [torch.rand(ek.num_envs, 4, generator=gen, device=device) * 2 - 1
@@ -139,7 +139,7 @@ def test_ml_test_split_kernel_matches_plain_physics_without_sync(device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert cuda_step.launches == len(acts)
-    s, _ = ek.reset(goal_idx)
+    s, _ = ek.reset(goal_idx=goal_idx)
     for a, ok in zip(acts, outs_k):
         s, op = ep.step(s, a)
         assert bool((ok["obs"][:, 36:39] == 0).all())  # the goal is hidden

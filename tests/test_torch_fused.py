@@ -93,7 +93,7 @@ def check_fused(je, te, step_j, n_goals, steps=20, restart=None, crossings=2):
     rng = np.random.default_rng(0)
     gidx = rng.integers(0, n_goals, te.num_envs).astype(np.int32)
     sj, oj = je._reset_jit(jax.random.PRNGKey(0), jnp.asarray(gidx))
-    st, ot = te.reset(torch.from_numpy(gidx))
+    st, ot = te.reset(goal_idx=torch.from_numpy(gidx))
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-6)
     _compare_state(sj, st, "reset")
     resets = 0
@@ -122,7 +122,7 @@ def test_episode_length_wraps_after_done(engines):
     restarts the count at 1; the reset state's path length is 0, so the
     following episode runs max_episode_steps steps after that one."""
     _, te, _ = engines
-    st, _ = te.reset(torch.zeros(te.num_envs, dtype=torch.int32))
+    st, _ = te.reset(goal_idx=torch.zeros(te.num_envs, dtype=torch.int32))
     lengths, dones = [], []
     for _ in range(10):
         st, out = te.step(st, torch.zeros(te.num_envs, 4))

@@ -27,7 +27,7 @@ def test_port_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"vector.py", "physics/cuda_step.py", "physics/engine_lanes.py",
             "envs/core.py", "convert.py", "policies/base.py",
-            "evaluation.py"} <= names
+            "evaluation.py", "wrappers.py", "gym_adapter.py"} <= names
     tasks = [p for p in MODULES if p.parent == PKG / "envs" / "tasks"
              and p.name.endswith("_v3.py")]
     experts = [p for p in MODULES if p.parent == PKG / "policies"
@@ -48,7 +48,10 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import metaworld_tpu_torch.vector, metaworld_tpu_torch.convert\n"
-        "import metaworld_tpu_torch.evaluation\n"
+        "import metaworld_tpu_torch.evaluation, metaworld_tpu_torch.wrappers\n"
+        "from metaworld_tpu_torch.gym_adapter import make_mt_envs\n"
+        "envs = make_mt_envs('MT10', device='cpu', num_goals=2)\n"
+        "assert envs.num_envs == 10 and envs.device.type == 'cpu'\n"
         "from metaworld_tpu_torch.policies import implemented_policies\n"
         "assert len(implemented_policies()) == 50\n"
         "import metaworld_tpu_torch.benchmarks as b\n"

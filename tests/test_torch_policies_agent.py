@@ -48,7 +48,7 @@ def test_scripted_agent_matches_jax():
     j_agent, t_agent = jevaluation.ScriptedAgent(je), evaluation.ScriptedAgent(te)
     rng = np.random.default_rng(0)
     gidx = torch.from_numpy(rng.integers(0, N_GOALS, te.num_envs).astype(np.int32))
-    state, obs = te.reset(gidx)
+    state, obs = te.reset(goal_idx=gidx)
     assert obs.shape == (20, 49)
     for t in range(7):
         ours = t_agent.eval_action(obs).numpy()
@@ -70,7 +70,7 @@ def test_lockstep_with_the_jax_agent():
     step_j = jax.jit(je._step_impl)
     gidx = np.random.default_rng(1).integers(0, N_GOALS, te.num_envs).astype(np.int32)
     sj, oj = je._reset_jit(jax.random.PRNGKey(0), jnp.asarray(gidx))
-    st, ot = te.reset(torch.from_numpy(gidx))
+    st, ot = te.reset(goal_idx=torch.from_numpy(gidx))
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-6)
     worst = 0.0
     for t in range(LOCKSTEP_STEPS):

@@ -40,7 +40,7 @@ def _closed_loop(bench, name, n_goals):
         physics="torch", device="cpu", task_select="pseudorandom",
         autoreset=False)
     agent = evaluation.ScriptedAgent(envs)
-    state, obs = envs.reset(torch.arange(n_goals, dtype=torch.int32))
+    state, obs = envs.reset(goal_idx=torch.arange(n_goals, dtype=torch.int32))
     success = torch.zeros(n_goals)
     with torch.no_grad():
         for _ in range(STEPS):
