@@ -18,8 +18,8 @@ failure exits non-zero before the result line:
      field <= 1e-4; one launch per control step, and blocks of every
      variant v0..v3 run;
   4. MT10: the fused step (metaworld_tpu_torch.vector.FusedBatchedEnvs) at
-     N = 131072 for 520 steps, so every slot crosses autoreset at
-     max_episode_steps=500: finite outputs, episode lengths wrap to 1, the
+     N = 131072 for 120 steps, so every slot crosses autoreset at
+     max_episode_steps=100: finite outputs, episode lengths wrap to 1, the
      kernel launched exactly once per step with blocks of every variant, no
      host synchronisation inside the step loop
      (torch.cuda.set_sync_debug_mode("error")); and on a small batch, the
@@ -41,7 +41,7 @@ failure exits non-zero before the result line:
      an attached object, a hooked joint or an unanchored object, so that
      the grasp and hook branches are seen to run;
   7. MT25: the fused step with the kernel against the plain physics on 3
-     slots per task, then 520 fused steps at N = 131072 with the checks of
+     slots per task, then 120 fused steps at N = 131072 with the checks of
      phase 4 (observations (131072, 64));
   8. MT25 timings: the kernel per control step as one launch, each
      variant's blocks as one launch with its bound over the MT25 envs, the
@@ -105,12 +105,38 @@ failure exits non-zero before the result line:
      done across the random-draw autoresets; 10 steps with the exponential
      reward norm. Prints the pipeline's step against the bare fused step
      (CUDA events, in turns) and the checkpoint's size.
+ 17. the per-env facade: `SawyerEnv(name, seed=0, device="cuda")` with
+     its first MT1(seed=0) goal on every one of the 50 tasks, driven by the
+     task's scripted expert for 50 steps (reach, push and drawer-open on
+     to success, which each must reach within 500 steps): the kernel at
+     N = 1 (one block of 128 lanes, one live env, the task's own variant),
+     one launch per step; then, from each task's reset state and its state
+     after the 50 expert steps, `env_step` with the kernel at N = 1 against
+     the plain version (one call over the 100 states) for 3 control steps
+     of random actions, each from the plain version's state, <= 1e-4 per
+     state field, one launch per kernel step; then a `GymVectorBatch` over `make_mt_envs("MT10",
+     envs_per_task=13107)` (N = 131070, numpy in and out) for 20 steps, one
+     launch each. Prints ms per SawyerEnv.step, the kernel's and the plain
+     version's ms at N = 1 per variant and the phase's seconds.
+ 18. autograd on the card: `vector.BatchedEnvs` (from_benchmark(fused=
+     False), the plain physics) on reach-v3: the gradient of 64 slots' mean
+     reward summed over 8 steps of a held action against central
+     differences (rtol 2e-2, atol 2e-3), whose 8 windows run as 8 more
+     blocks of 64 slots in the same batch; finite jacobians of the next
+     sim state in the action on reach, push, drawer-open and hammer, in
+     one BatchedEnvs and one backward pass (one slot per jacobian row); the kernel path refusing an action that requires grad
+     (`env_step` and the fused engine raise, naming physics='torch'); two
+     APG updates (`train_apg`: Pi with 128 hidden units, Adam, H = 60) with
+     finite loss and gradients, no kernel launch in the differentiable
+     path. Prints the seconds per update (forward, backward) and the peak
+     device memory.
 
 The line before the last is the per-kernel JSON record, one record per
 variant and path (MT10, MT25, MT50; the MT50 closed loop and the MT50
 evaluation, whose launches are phases 13's and 14's and whose times are
 phase 11's on the same layout; the ML45 test split's metalearning and
-the MT10 pipeline, timed on their own layouts); the last line is
+the MT10 pipeline, timed on their own layouts; the per-env facade at
+N = 1, whose launches are phase 17's expert drive); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -127,8 +153,11 @@ import numpy as np
 import torch
 
 N_ENVS = 131072
-FUSED_STEPS = 520
-MAX_EPISODE_STEPS = 500
+# the main path's fused steps and its episodes: long enough that every slot
+# crosses one autoreset (the reference's 500-step episodes run in phases
+# 13-14)
+FUSED_STEPS = 120
+MAX_EPISODE_STEPS = 100
 PHYS_STEPS = 5
 PATH_PHYS_STEPS = 25
 ML45_PER_TASK = {"train": 2913, "test": 26214}  # N = 131085 and 131070
@@ -152,6 +181,20 @@ PIPE_EPISODE = 20
 PIPE_STEPS = 60
 PIPE_CKPT = 20
 PIPE_EXP_STEPS = 10
+FACADE_EXPERT_STEPS = 50
+FACADE_HOLD_STEPS = 3
+FACADE_SUCCESS = ("reach-v3", "push-v3", "drawer-open-v3")
+FACADE_MAX_STEPS = 500
+GYM_PER_TASK = 13107  # MT10 x 13107 = 131070 slots
+GYM_STEPS = 20
+APG_N = 64
+APG_H = 60
+APG_UPDATES = 2
+GRAD_STEPS = 8
+JAC_CASES = (("reach-v3", (0.0, 0.65, 0.02, 0.0, 0.8, 0.2)),
+             ("push-v3", (0.0, 0.65, 0.02, 0.05, 0.8, 0.02)),
+             ("drawer-open-v3", (0.0, 0.9, 0.0)),
+             ("hammer-v3", (0.05, 0.45, 0.0)))
 
 
 def fail(msg):
@@ -439,7 +482,7 @@ def fused_small(dev, gen, path, n):
 
 
 def fused_main(eng, dev, gen, obs_dim, tag):
-    """520 fused steps at full width with every check of the main path;
+    """FUSED_STEPS fused steps at full width with every check of the main path;
     returns (kernel launches that ran each variant, the actions)."""
     from metaworld_tpu_torch.physics import cuda_step
 
@@ -519,7 +562,7 @@ def variant_records(eng, dev, act, ops, path, launches, errs, card):
         idx = torch.nonzero(variant == v).flatten()
         sim_v = sim.map(lambda t: t[idx])
         p_ms = time_ms(lambda: cuda_step.plain_control_step(
-            table, ids[idx], sim_v, act[idx]), 3, 1)
+            table, ids[idx], sim_v, act[idx]), 2, 1)
         b_bytes = (n_v * bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
         b_ops = ops[v] * 5 * n_v / F32_OPS_PER_S * 1e3
         records.append({
@@ -567,7 +610,7 @@ def count_ops(path):
 def run_path(path, dev, gen, card, seed, n_small, fused_mt10_ms, must_see=()):
     """Phases 6-8 (MT25) and 9-11 (MT50): kernel vs plain in the random and
     the seek mode, the fused step with the kernel against the plain physics
-    on `n_small` slots, 520 fused steps at N = 131072 and the timings.
+    on `n_small` slots, FUSED_STEPS fused steps at N = 131072 and the timings.
     Returns the path's `kernels` records."""
     from metaworld_tpu_torch.physics import cuda_step
 
@@ -1113,6 +1156,314 @@ def run_pipeline(dev, card, gen):
                            launches, errs, card)
 
 
+def run_facade(dev, card):
+    """Phase 17: SawyerEnv with the expert on all 50 tasks (the kernel at
+    N = 1), env_step with the kernel against the plain version from each
+    task's reset and expert-reached states, and a GymVectorBatch over MT10
+    at full width. Returns the per-env `kernels` records."""
+    import metaworld_tpu_torch as mw
+    from metaworld_tpu_torch import gym_adapter
+    from metaworld_tpu_torch.envs import core, registry
+    from metaworld_tpu_torch.physics import cuda_step
+    from metaworld_tpu_torch.policies import get_policy
+    from metaworld_tpu_torch.types import tree_map
+
+    t_phase = time.time()
+    names = task_names("mt50")
+    variant = {n: int(core.step_tables(registry.get_spec(n), dev, 1)[2].host[0, 0])
+               for n in names}
+
+    # the main path: the expert through SawyerEnv.step, one launch per step
+    starts, reached, steps, solved = {}, {}, {}, {}
+    torch.cuda.synchronize()
+    cuda_step.reset_counts()
+    t0 = time.time()
+    for name in names:
+        env = mw.SawyerEnv(name, seed=0, device=dev)
+        env.set_task(mw.MT1(name, seed=0, num_goals=1).train_tasks[0])
+        obs, _ = env.reset()
+        starts[name] = env._state
+        pol = get_policy(name)
+        success, first = 0.0, None
+        limit = FACADE_MAX_STEPS if name in FACADE_SUCCESS else FACADE_EXPERT_STEPS
+        for t in range(limit):
+            obs, _, _, _, info = env.step(
+                pol(torch.from_numpy(obs[None].astype(np.float32)))[0].numpy())
+            if info["success"] and first is None:
+                first = t + 1
+            if t + 1 == FACADE_EXPERT_STEPS:
+                reached[name] = env._state
+            if first is not None and t + 1 >= FACADE_EXPERT_STEPS:
+                break
+        steps[name], solved[name] = t + 1, first
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    total, launches = cuda_step.launches, list(cuda_step.launches_by_variant)
+    n_steps = sum(steps.values())
+    print(f"[facade] {card}: SawyerEnv on the card, 50 tasks, expert for "
+          f"{FACADE_EXPERT_STEPS} steps (reach/push/drawer-open to success): "
+          f"{n_steps} steps in {wall:.2f} s wall, {wall / n_steps * 1e3:.2f} ms per "
+          f"SawyerEnv.step (expert on the host included); launches {total}, by "
+          f"variant {launches}; tasks by variant "
+          f"{[sum(v == k for v in variant.values()) for k in range(4)]}; first "
+          f"success " + ", ".join(f"{n} step {solved[n]}" for n in FACADE_SUCCESS))
+    if total != n_steps or sum(launches) != n_steps:
+        fail(f"facade: {total} kernel launches ({launches}) for {n_steps} steps")
+    if min(launches) == 0:
+        fail(f"facade: a variant never ran at N = 1: {launches}")
+    unsolved = [n for n in FACADE_SUCCESS if solved[n] is None]
+    if unsolved:
+        fail(f"facade: the expert did not reach success on {unsolved}")
+
+    # env_step with the kernel at N = 1 against the plain version, from the
+    # reset and the expert-reached state of every task; the plain side is
+    # one plain_control_step over all 100 states (its slots are independent)
+    table = cuda_step.build_scene_table([registry.get_spec(n).scene for n in names], dev)
+    slots = [(n, st) for n in names for st in (starts[n], reached[n])]
+    ids = torch.tensor([names.index(n) for n, _ in slots], dtype=torch.int32,
+                       device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    err_by_variant = [0.0] * 4
+    worst = (0.0, None, None)
+    for t in range(FACADE_HOLD_STEPS):
+        act = torch.rand(len(slots), 4, generator=gen, device=dev) * 2 - 1
+        before = cuda_step.launches
+        got = [core.env_step(registry.get_spec(n), st, act[k:k + 1], physics="cuda")[0]
+               for k, (n, st) in enumerate(slots)]
+        if cuda_step.launches - before != len(slots):
+            fail(f"facade: {cuda_step.launches - before} launches for "
+                 f"{len(slots)} N = 1 steps")
+        sim = tree_map(lambda *x: torch.cat(x), *[st.sim for _, st in slots])
+        ref, _ = core.keep_stable(
+            cuda_step.plain_control_step(table, ids, sim, act), sim)
+        for k, (n, _) in enumerate(slots):
+            for f, d in field_errors(got[k].sim, ref.map(lambda x: x[k:k + 1]),
+                                     1).items():
+                e = float(d.max())
+                err_by_variant[variant[n]] = max(err_by_variant[variant[n]], e)
+                if not e <= worst[0]:
+                    worst = (e, n, f)
+        slots = [(n, got[k].replace(sim=ref.map(lambda x: x[k:k + 1])))
+                 for k, (n, _) in enumerate(slots)]
+    print(f"[facade-vs-plain] {card}: env_step at N = 1, "
+          f"{FACADE_HOLD_STEPS * len(slots)} kernel steps over 50 tasks x (reset, "
+          f"expert-reached) x {FACADE_HOLD_STEPS}: max abs err {worst[0]:.3e} "
+          f"({worst[1]} {worst[2]}); by variant "
+          f"{['%.3e' % e for e in err_by_variant]}")
+    if not worst[0] <= 1e-4:
+        fail(f"facade: kernel disagrees with its plain version at N = 1 on "
+             f"{worst[1]}: {worst[2]} {worst[0]:.3e}")
+
+    # the Gymnasium vector facade over MT10 at full width
+    batch = gym_adapter.GymVectorBatch(mw.make_mt_envs(
+        "MT10", seed=0, envs_per_task=GYM_PER_TASK, use_one_hot=True,
+        device=dev), seed=0)
+    n = batch.num_envs
+    obs, _ = batch.reset()
+    rng = np.random.default_rng(17)
+    acts = [rng.uniform(-1, 1, (n, 4)).astype(np.float32) for _ in range(GYM_STEPS)]
+    finite = bool(np.isfinite(obs).all())
+    torch.cuda.synchronize()
+    cuda_step.reset_counts()
+    t0 = time.time()
+    for a in acts:
+        obs, rew, term, trunc, info = batch.step(a)
+        finite &= bool(np.isfinite(obs).all() and np.isfinite(rew).all())
+    gym_wall = time.time() - t0
+    print(f"[facade gym] {card}: GymVectorBatch over MT10, {n} envs, obs "
+          f"{obs.shape}: {GYM_STEPS} steps in {gym_wall:.2f} s wall "
+          f"({gym_wall / GYM_STEPS * 1e3:.2f} ms per step with numpy in and out); "
+          f"launches {cuda_step.launches}; final_info keys "
+          f"{sorted(info['final_info'])}")
+    if cuda_step.launches != GYM_STEPS:
+        fail(f"facade gym: {cuda_step.launches} launches for {GYM_STEPS} steps")
+    if not finite or obs.shape != (n, 49):
+        fail(f"facade gym: non-finite outputs or obs shape {obs.shape}")
+
+    # times at N = 1, one task of each variant
+    ops = count_ops("mt50")
+    bytes_per_env = (2 * cuda_step.SIM_ROWS + 4) * 4 + 4
+    records = []
+    for v in range(4):
+        name = next(n for n in names if variant[n] == v)
+        spec = registry.get_spec(name)
+        table, ids, blocks = core.step_tables(spec, dev, 1)
+        sim = starts[name].sim
+        act = torch.rand(1, 4, generator=gen, device=dev) * 2 - 1
+        _, target, effort = cuda_step._sim_and_ctl(table, ids, sim, act)
+        ctl = torch.cat([target.T, effort[None]]).contiguous()
+        rows = cuda_step.pack_sim_rows(sim).contiguous()
+        k_ms = time_ms(lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, blocks), 200)
+        p_ms = time_ms(lambda: cuda_step.plain_control_step(table, ids, sim, act), 2, 1)
+        step_ms = time_ms(lambda: core.env_step(spec, starts[name], act), 20)
+        b_bytes = (bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        b_ops = ops[v] * 5 / F32_OPS_PER_S * 1e3
+        records.append({
+            "name": f"step_kernel_v{v}", "path": "per-env N=1", "route": "cuda",
+            "source": "metaworld_tpu_torch/csrc/step_kernel.cu",
+            "replaces": TPU_KERNEL, "launches": launches[v],
+            "max_abs_err": err_by_variant[v], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "library_ms": None,
+        })
+        print(f"[facade kernel v{v}] {card}: {name} at N = 1: kernel {k_ms:.4f} ms "
+              f"per control step, plain {p_ms:.2f} ms, env_step with the kernel "
+              f"{step_ms:.2f} ms; bound {max(b_bytes, b_ops) * 1e3:.4f} us")
+    print(f"[facade] phase {time.time() - t_phase:.1f} s")
+    return records
+
+
+def run_autograd(dev, card):
+    """Phase 18: backprop through the plain physics on the card: a gradient
+    against central differences, finite jacobians, the kernel refusing
+    grad, and two APG updates at H = 60."""
+    from metaworld_tpu_torch import benchmarks, train_apg, vector
+    from metaworld_tpu_torch.envs import core, registry
+    from metaworld_tpu_torch.physics import cuda_step
+    from metaworld_tpu_torch.types import MAX_RAND, SimState
+
+    t_phase = time.time()
+    cuda_step.reset_counts()
+    # the 8-step window of APG_N slots, and the 8 windows of central
+    # differences in the same batch: block k of APG_N slots (same goal
+    # rows in every block) holds the action a0 + d_k, d_0 = 0
+    eps = 3e-3
+    shifts = torch.cat([torch.zeros(1, 4), eps * torch.eye(4), -eps * torch.eye(4)]).to(dev)
+    n_blocks = shifts.shape[0]
+    envs = vector.from_benchmark(benchmarks.MT1("reach-v3", seed=0),
+                                 envs_per_task=APG_N * n_blocks, fused=False,
+                                 device=dev, task_select="pseudorandom")
+    goal_idx = (torch.arange(APG_N * n_blocks, device=dev, dtype=torch.int32)
+                % APG_N) % 50
+    a0 = torch.zeros(4, device=dev, requires_grad=True)
+    t0 = time.time()
+    state, _ = envs.reset(goal_idx=goal_idx)
+    acts = torch.cat([a0[None], a0.detach() + shifts[1:]]).repeat_interleave(APG_N, 0)
+    window = torch.zeros(n_blocks, device=dev)
+    for _ in range(GRAD_STEPS):
+        state, out = envs.step(state, acts)
+        window = window + out["reward"].view(n_blocks, APG_N).mean(1)
+    window[0].backward()
+    torch.cuda.synchronize()
+    t_grad = time.time() - t0
+    g = a0.grad.cpu().numpy()
+    w = window.detach().cpu().numpy()
+    fd = (w[1:5] - w[5:9]) / (2 * eps)
+    grad_ok = bool(np.allclose(g, fd, rtol=2e-2, atol=2e-3))
+    print(f"[autograd] {card}: BatchedEnvs reach-v3, physics {envs.physics}, "
+          f"{n_blocks} blocks of N = {APG_N}: d(mean reward over {GRAD_STEPS} steps)/"
+          f"d(action) {np.array2string(g, precision=6)}, central differences "
+          f"{np.array2string(fd, precision=6)}; forward and backward {t_grad:.2f} s")
+    if not grad_ok:
+        fail(f"autograd: gradient {g} differs from central differences {fd}")
+
+    # the jacobians of the next sim state in the action on the four tasks in
+    # one BatchedEnvs and one backward pass: each task holds one slot per
+    # state component (72), all in the task's same state and action, and
+    # slot j's cotangent is one-hot on component j, so slot j's action
+    # gradient is row j of the task's jacobian (the slots are independent)
+    names = [n for n, _ in JAC_CASES]
+    tables = []
+    for _, vec in JAC_CASES:
+        row = np.zeros((1, MAX_RAND))
+        row[0, :len(vec)] = vec
+        tables.append(row)
+    fields = list(SimState.__dataclass_fields__)
+    t0 = time.time()
+    base = core.base_sim_state(registry.get_spec(names[0]), 1, dev)
+    width = sum(getattr(base, f)[0].numel() for f in fields)
+    jenv = vector.BatchedEnvs([registry.get_spec(n) for n in names],
+                              [width] * len(names), tables, device=dev)
+    jstate, _ = jenv.reset()
+    a = torch.tensor([0.1, 0.05, -0.1, 0.3], device=dev).repeat(jenv.num_envs, 1)
+    a.requires_grad_(True)
+    st2, _ = jenv.step(jstate, a)
+    flat = torch.cat([getattr(st2.env.sim, f).float().reshape(jenv.num_envs, -1)
+                      for f in fields], dim=1)
+    onehot = torch.eye(width, device=dev).repeat(len(names), 1)
+    (rows,) = torch.autograd.grad(flat, a, onehot)
+    jac = rows.view(len(names), width, 4)
+    torch.cuda.synchronize()
+    t_jac = time.time() - t0
+    offsets = np.cumsum([0] + [getattr(st2.env.sim, f)[0].numel() for f in fields])
+    hand = slice(int(offsets[fields.index("hand")]), int(offsets[fields.index("hand") + 1]))
+    for k, name in enumerate(names):
+        finite = torch.isfinite(jac[k]).all(dim=1).cpu().numpy()
+        bad = sorted({fields[int(np.searchsorted(offsets, j, side="right")) - 1]
+                      for j in np.flatnonzero(~finite)})
+        moved = float(jac[k, hand].abs().sum())
+        print(f"[autograd jacobian] {name}: d(next sim state)/d(action), "
+              f"{width} x 4 entries, non-finite fields {bad}, |d hand/d action| "
+              f"{moved:.4f}")
+        if bad or not moved > 0:
+            fail(f"autograd: jacobian of {name}: non-finite {bad}, hand moved {moved}")
+    print(f"[autograd jacobian] four tasks, {jenv.num_envs} slots, one backward pass, "
+          f"in {t_jac:.2f} s")
+
+    # the kernel has no backward: its path must refuse, not fall back
+    spec = registry.get_spec("reach-v3")
+    st, _ = core.env_reset(spec, torch.zeros(1, MAX_RAND, device=dev), 1.0)
+    act = torch.zeros(1, 4, device=dev, requires_grad=True)
+    fused = vector.from_benchmark(benchmarks.MT1("reach-v3", seed=0, num_goals=2),
+                                  envs_per_task=2, device=dev)
+    fstate, _ = fused.reset()
+    refusals = []
+    for what, fn in (("env_step", lambda: core.env_step(spec, st, act)),
+                     ("fused step", lambda: fused.step(fstate, act.expand(2, 4)))):
+        try:
+            fn()
+            refusals.append(f"{what}: ran")
+        except RuntimeError as err:
+            refusals.append(f"{what}: refused" if "physics='torch'" in str(err)
+                            else f"{what}: {err}")
+    with torch.no_grad():
+        core.env_step(spec, st, act)
+    print(f"[autograd refusal] the kernel under autograd: {refusals}; under "
+          f"no_grad it launched {cuda_step.launches} time(s)")
+    if refusals != ["env_step: refused", "fused step: refused"] or cuda_step.launches != 1:
+        fail(f"autograd: the kernel path did not refuse grad: {refusals}")
+
+    # two APG updates (train_apg.update, split to time its two halves)
+    torch.manual_seed(0)
+    apg_envs = vector.from_benchmark(benchmarks.MT1("reach-v3", seed=0),
+                                     envs_per_task=APG_N, fused=False, device=dev,
+                                     seed=1)
+    pi = train_apg.Pi(apg_envs.obs_dim, 128).to(dev)
+    opt = torch.optim.Adam(pi.parameters(), lr=2e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_step.reset_counts()
+    for u in range(APG_UPDATES):
+        opt.zero_grad(set_to_none=True)
+        t0 = time.time()
+        loss, reward, success = train_apg.episode_loss(pi, apg_envs, APG_H)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        loss.backward()
+        norm = torch.nn.utils.clip_grad_norm_(pi.parameters(), 1.0)
+        opt.step()
+        torch.cuda.synchronize()
+        t2 = time.time()
+        finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(norm)) and all(
+            bool(torch.isfinite(p.grad).all()) for p in pi.parameters())
+        print(f"[autograd apg] {card}: update {u}: N = {APG_N}, H = {APG_H}: loss "
+              f"{loss.item():.5f}, mean reward {float(reward):.4f}, success "
+              f"{float(success):.3f}, grad norm {float(norm):.4f}; forward "
+              f"{t1 - t0:.2f} s, backward and Adam {t2 - t1:.2f} s, update "
+              f"{t2 - t0:.2f} s")
+        if not finite:
+            fail(f"autograd: APG update {u} has a non-finite loss or gradient")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[autograd apg] peak device memory {peak / 2**30:.3f} GiB; kernel "
+          f"launches in the differentiable path {cuda_step.launches}; phase "
+          f"{time.time() - t_phase:.1f} s")
+    if cuda_step.launches != 0:
+        fail(f"autograd: the differentiable path launched the kernel "
+             f"{cuda_step.launches} times")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1163,7 +1514,7 @@ def main():
     if bad:
         fail(f"fused step with the kernel disagrees with the plain physics: {bad}")
 
-    # ---- 4b. the main path: 520 fused steps at full width ----
+    # ---- 4b. the main path: FUSED_STEPS fused steps at full width ----
     gen.manual_seed(2)
     main_launches, acts = fused_main(eng, dev, gen, 49, "fused")
 
@@ -1238,6 +1589,10 @@ def main():
     kernels += run_metalearning(dev, card, gen, ml45_errs["test"])
     gen.manual_seed(16)
     kernels += run_pipeline(dev, card, gen)
+
+    # ---- 17. the per-env facade; 18. autograd ----
+    kernels += run_facade(dev, card)
+    run_autograd(dev, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -112,6 +112,14 @@ def _draw(spec: TaskSpec, name: str, rng=np.random) -> np.ndarray:
     return v
 
 
+def draw_reset_vec(spec: TaskSpec, name: str, rng) -> np.ndarray:
+    """The full per-reset draw sequence: the reference's reset() invokes
+    reset_model TWICE (ref sawyer_xyz_env.py:664-682), each performing its
+    own rejection-resampled draw; the second wins."""
+    _draw(spec, name, rng)
+    return _draw(spec, name, rng)
+
+
 def _make_tasks(env_names: list[str], seed: int | None,
                 partially_observable: bool, n_goals: int = _N_GOALS):
     """Replay of ref metaworld/__init__.py:114-179 (global-numpy variant)."""

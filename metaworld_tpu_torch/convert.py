@@ -12,7 +12,8 @@ port draws from `torch.Generator`s instead). The scripted experts
 The wrapper states (`wrappers.RunningStat`, the reward and observation
 norm states and the RNN meta-RL state) carry over field for field, so a
 port `EnvPipeline` can continue a JAX pipeline's run
-(`pipeline_state_from_dicts`).
+(`pipeline_state_from_dicts`). `pi_from_flax` carries the weights of the
+flax policy of scripts/train_apg.py into `train_apg.Pi`.
 """
 
 from __future__ import annotations
@@ -73,6 +74,17 @@ def env_from_dict(d: dict, device="cuda") -> EnvState:
     return _build(EnvState, d, device, nested={"sim": SimState})
 
 
+def _batch1(d):
+    return ({k: _batch1(v) for k, v in d.items()} if isinstance(d, dict)
+            else np.asarray(d)[None])
+
+
+def env_from_single_dict(d: dict, device="cuda") -> EnvState:
+    """A 1-slot EnvState from one env's unbatched state (the JAX package's
+    per-env `EnvState`, as `as_dict` gives it)."""
+    return env_from_dict(_batch1(d), device)
+
+
 def fused_from_dict(d: dict, device="cuda"):
     """The fused engine's state (see vector.FusedState)."""
     from metaworld_tpu_torch.vector import FusedState
@@ -112,3 +124,20 @@ def pipeline_state_from_dicts(vstate, rnorm, onorm, rnn, device="cuda"):
 
     return (fused_from_dict(vstate, device), opt(reward_norm_from_dict, rnorm),
             opt(obs_norm_from_dict, onorm), opt(rnn_state_from_dict, rnn))
+
+
+def pi_from_flax(params: dict, device="cuda"):
+    """`train_apg.Pi` with the weights of a flax `Pi` (its params tree as
+    nested dicts of numpy arrays: Dense_0..Dense_2, each a (in, out)
+    `kernel` and a (out,) `bias`)."""
+    from metaworld_tpu_torch.train_apg import Pi
+
+    p = params.get("params", params)
+    dense = [p[f"Dense_{i}"] for i in range(3)]
+    k0 = np.asarray(dense[0]["kernel"])
+    pi = Pi(k0.shape[0], k0.shape[1])
+    with torch.no_grad():
+        for layer, d in zip(pi.layers, dense):
+            layer.weight.copy_(torch.from_numpy(np.array(d["kernel"], np.float32).T))
+            layer.bias.copy_(torch.from_numpy(np.array(d["bias"], np.float32)))
+    return pi.to(device)

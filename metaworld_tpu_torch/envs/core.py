@@ -4,10 +4,11 @@ the per-task step tail and reset.
 Counterpart of `metaworld_tpu/envs/core.py`. The JAX functions are written
 for one env and vmapped; here every function takes a task's whole group of
 slots at once: `state` fields are (n, ...) tensors, `action` is (n, 4), and
-outputs are (n,) or (n, k). A `TaskSpec` keeps its numpy constants exactly
-as the task module wrote them (benchmark goal sampling reads them in
-float64); `spec.consts(device)` hands out their float32 tensors, made once
-per device.
+outputs are (n,) or (n, k). The per-env API of the JAX package is the same
+functions at n = 1 (`env_step`, `env_reset`). A `TaskSpec` keeps its numpy
+constants exactly as the task module wrote them (benchmark goal sampling
+reads them in float64); `spec.consts(device)` hands out their float32
+tensors, made once per device.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from metaworld_tpu_torch.physics import engine, maths
+from metaworld_tpu_torch.physics import cuda_step, engine, maths
 from metaworld_tpu_torch.rewards import utils as reward_utils
 from metaworld_tpu_torch.types import (
     HAND_SPACE_HIGH,
@@ -210,6 +211,69 @@ def obs_bounds(spec: TaskSpec, goal_visible: bool):
     low = np.concatenate([lo_hand, [-1.0], obj_lo, lo_hand, [-1.0], obj_lo, g_lo])
     high = np.concatenate([hi_hand, [1.0], obj_hi, hi_hand, [1.0], obj_hi, g_hi])
     return low, high
+
+
+# ---------------------------------------------------------------------------
+# step
+# ---------------------------------------------------------------------------
+
+def step_tables(spec: TaskSpec, device, n: int):
+    """(scene table, task ids, block table) of n slots of one task on
+    `device`, made once per (spec, device, n): the kernel's one launch per
+    step then reads nothing on the host."""
+    key = ("step", str(torch.device(device)), int(n))
+    if key not in spec._cache:
+        table = cuda_step.build_scene_table([spec.scene], device)
+        ids = torch.zeros(n, dtype=torch.int32, device=device)
+        blocks = cuda_step.block_table(np.zeros(n, np.int64), table.features,
+                                       device=device)
+        spec._cache[key] = (table, ids, blocks)
+    return spec._cache[key]
+
+
+def keep_stable(sim: SimState, prev: SimState):
+    """The non-finite guard (ref _did_see_sim_exception, sawyer_xyz_env.py:
+    235,603-619): slots whose new sim state holds a non-finite hand,
+    object, joint or gripper value keep `prev`. Returns (sim, stable (n,))."""
+    n = sim.hand.shape[0]
+    stable = (torch.isfinite(sim.hand).all(-1)
+              & torch.isfinite(sim.obj_pos).reshape(n, -1).all(-1)
+              & torch.isfinite(sim.joint_q).all(-1)
+              & torch.isfinite(sim.gripper))
+
+    def sel(new, old):
+        return torch.where(stable.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+    return tree_map(sel, sim, prev), stable
+
+
+def env_step(spec: TaskSpec, state: EnvState, action, physics: str = "auto"):
+    """One control step of n slots of one task (ref sawyer_xyz_env.py:
+    579-642): physics, the non-finite guard, path length, observation and
+    reward; an unstable slot keeps its last stable sim state and reports
+    reward 0. Returns (new_state, StepOut).
+
+    `physics`: "cuda" (the kernel, one launch; CUDA tensors only, and it
+    has no backward: under autograd it raises), "torch" (the plain lane
+    engine on any device, differentiable) or "auto" ("cuda" on a CUDA
+    device, "torch" elsewhere)."""
+    assert physics in ("auto", "torch", "cuda"), physics
+    dev = action.device
+    if physics == "auto":
+        physics = "cuda" if dev.type == "cuda" else "torch"
+    if physics == "cuda" and dev.type != "cuda":
+        raise ValueError("physics='cuda' needs a CUDA device")
+    table, ids, blocks = step_tables(spec, dev, action.shape[0])
+    if physics == "cuda":
+        sim = cuda_step.control_step(table, ids, state.sim, action, blocks)
+    else:
+        sim = cuda_step.plain_control_step(table, ids, state.sim, action)
+    sim, stable = keep_stable(sim, state.sim)
+    state = state.replace(sim=sim, path_length=state.path_length + 1)
+    state, out = post_step(spec, state, action)
+    return state, out.replace(
+        reward=torch.where(stable, out.reward, 0.0),
+        unscaled_reward=torch.where(stable, out.unscaled_reward, 0.0))
 
 
 # ---------------------------------------------------------------------------

@@ -92,7 +92,8 @@ def _module_for(name: str) -> str:
 
 
 def get_spec(name: str, reward_function_version: str = "v2") -> TaskSpec:
-    """Task spec for `name` (v2 reward family)."""
+    """Task spec for `name` (v2 reward family; "v1" raises
+    NotImplementedError)."""
     if name not in TASK_ID:
         raise KeyError(
             f"unknown env name {name!r}; valid names are the 50 entries of "
@@ -102,8 +103,11 @@ def get_spec(name: str, reward_function_version: str = "v2") -> TaskSpec:
         if name not in _MAKERS:
             importlib.import_module(_module_for(name))
         _SPECS[name] = _MAKERS[name](TASK_ID[name])
+    if reward_function_version == "v1":
+        raise NotImplementedError(
+            "the v1 reward family is not ported to metaworld_tpu_torch yet "
+            "(ROADMAP.md, item A14); use reward_function_version='v2'")
     if reward_function_version != "v2":
         raise ValueError(
-            "only the v2 reward family is ported; got "
-            f"{reward_function_version!r}")
+            f"unknown reward_function_version {reward_function_version!r}")
     return _SPECS[name]

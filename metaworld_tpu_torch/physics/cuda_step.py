@@ -396,6 +396,13 @@ def launch_rows(table_rows, task_ids, state_rows, ctl, blocks: BlockTable,
     `lib` is another build of the kernel library (kernel_sweep.py); by
     default the shipped one."""
     global launches
+    if torch.is_grad_enabled() and (table_rows.requires_grad
+                                    or state_rows.requires_grad
+                                    or ctl.requires_grad):
+        raise RuntimeError(
+            "the physics kernel has no backward pass: to differentiate "
+            "through the physics, step with physics='torch' (the plain "
+            "PyTorch lane engine), or run the kernel under torch.no_grad()")
     dev = state_rows.device
     n = state_rows.shape[1]
     n_tasks = table_rows.shape[0]
@@ -447,7 +454,9 @@ def control_step(table: SceneTable, task_ids, sim: SimState, action,
     """One control step of N envs. `task_ids` (N,) int32 index the table;
     `blocks` is the launch's `block_table` over them (None: every block
     runs all features; building that table reads `task_ids` on the host).
-    CUDA tensors launch the kernel; CPU tensors run `plain_control_step`."""
+    CUDA tensors launch the kernel; CPU tensors run `plain_control_step`.
+    The kernel has no backward: with grad mode on and an input that
+    requires grad, the launch raises (`launch_rows`)."""
     if sim.hand.device.type != "cuda":
         return plain_control_step(table, task_ids, sim, action)
     if blocks is None:

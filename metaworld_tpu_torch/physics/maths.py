@@ -1,7 +1,7 @@
 """Quaternion helpers (wxyz, like MuJoCo) on `(..., 4)` tensors.
 
-Counterpart of `metaworld_tpu/physics/maths.py`, limited to what the MT10
-slice reads.
+Counterpart of `metaworld_tpu/physics/maths.py`, limited to what the port
+reads.
 """
 
 from __future__ import annotations
@@ -42,3 +42,16 @@ def axis_angle_quat(axis, angle):
 
 def quat_to_xyzw(q):
     return torch.cat([q[..., 1:], q[..., :1]], dim=-1)
+
+
+def quat_to_mat(q):
+    """(..., 4) wxyz -> (..., 3, 3) rotation matrix."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )

@@ -190,3 +190,16 @@ class StepOut(_Tree):
     in_place_reward: object
     obj_to_target: object
     unscaled_reward: object
+
+
+def info_dict(out: StepOut) -> dict:
+    """The reference's per-step info schema (ref sawyer_xyz_env.py:610-618)."""
+    return {
+        "success": out.success,
+        "near_object": out.near_object,
+        "grasp_success": out.grasp_success,
+        "grasp_reward": out.grasp_reward,
+        "in_place_reward": out.in_place_reward,
+        "obj_to_target": out.obj_to_target,
+        "unscaled_reward": out.unscaled_reward,
+    }

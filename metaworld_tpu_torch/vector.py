@@ -33,7 +33,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from metaworld_tpu_torch.envs.core import TaskSpec, env_reset, post_step
+from metaworld_tpu_torch.envs import registry
+from metaworld_tpu_torch.envs.core import (
+    TaskSpec, env_reset, keep_stable, post_step)
 from metaworld_tpu_torch.physics import cuda_step, engine_lanes
 from metaworld_tpu_torch.types import (
     MAX_PATH_LENGTH, EnvState, _Tree, tree_map)
@@ -72,7 +74,10 @@ class FusedBatchedEnvs:
     (the plain PyTorch lane engine, any device) or "auto" ("cuda" on a CUDA
     device, "torch" on the CPU). "auto" never moves tensors between devices.
     `goal_visible` is one flag for all tasks or one per task (the ML
-    benchmarks hide the goal).
+    benchmarks hide the goal). With `one_hot`, each observation ends in a
+    one-hot block of `num_tasks` columns (default: one per spec) with spec
+    i's slots on column `task_indices[i]` (default: i), as the reference's
+    OneHotWrapper numbers tasks within a benchmark.
     """
 
     def __init__(
@@ -82,6 +87,8 @@ class FusedBatchedEnvs:
         goal_tables: Sequence[np.ndarray],
         goal_visible: Sequence[bool] | bool = True,
         one_hot: bool = False,
+        num_tasks: int | None = None,
+        task_indices: Sequence[int] | None = None,
         terminate_on_success: bool = False,
         max_episode_steps: int = MAX_PATH_LENGTH,
         autoreset: bool = True,
@@ -124,9 +131,11 @@ class FusedBatchedEnvs:
         # one-hot task id block
         self.one_hot = one_hot
         if one_hot:
-            n = len(specs)
+            n = num_tasks if num_tasks is not None else len(specs)
+            idx = np.asarray(task_indices if task_indices is not None
+                             else range(len(specs)), dtype=np.int64)
             oh = np.zeros((self.num_envs, n), dtype=np.float32)
-            oh[np.arange(self.num_envs), slot_task] = 1.0
+            oh[np.arange(self.num_envs), idx[slot_task]] = 1.0
             self._one_hot_block = torch.from_numpy(oh).to(dev)
             self.obs_dim = 39 + n
         else:
@@ -255,12 +264,7 @@ class FusedBatchedEnvs:
             sim = cuda_step.plain_control_step(self.scene_table, self.task_ids,
                                                env.sim, actions)
         # non-finite guard: unstable slots keep their last stable sim state
-        n = self.num_envs
-        stable = (torch.isfinite(sim.hand).all(-1)
-                  & torch.isfinite(sim.obj_pos).reshape(n, -1).all(-1)
-                  & torch.isfinite(sim.joint_q).all(-1)
-                  & torch.isfinite(sim.gripper))
-        sim = _select(stable, sim, env.sim)
+        sim, stable = keep_stable(sim, env.sim)
         env = env.replace(sim=sim, path_length=env.path_length + 1)
 
         # per-task observation / reward tails
@@ -319,19 +323,38 @@ class FusedBatchedEnvs:
         return new_state, outputs
 
 
+class BatchedEnvs(FusedBatchedEnvs):
+    """The JAX package's grouped engine (`metaworld_tpu/vector.py:60-295`,
+    `from_benchmark(fused=False)`): the same interface and results as the
+    fused engine, whose per-task tails are already grouped, with the
+    physics defaulting to "torch", the differentiable plain lane engine.
+    Its outputs keep autograd history from the actions to the rewards and
+    observations, across NEXT_STEP autoresets too."""
+
+    def __init__(self, *args, physics: str = "torch", **kwargs):
+        super().__init__(*args, physics=physics, **kwargs)
+
+
 def from_benchmark(bench, split: str = "train", envs_per_task: int = 1,
+                   fused: bool = True, reward_function_version: str = "v2",
                    **kwargs) -> FusedBatchedEnvs:
     """`envs_per_task` slots per task of a benchmark's `split` ("train" or
     "test"), goals from that task's goal table of the split; the goal is
     hidden for tasks whose split is partially observable (the ML
-    benchmarks). `kwargs` go to FusedBatchedEnvs."""
+    benchmarks). `fused=False` builds a `BatchedEnvs` (plain, differentiable
+    physics by default). Only the v2 reward family is ported:
+    `reward_function_version="v1"` raises NotImplementedError. `kwargs` go
+    to the engine."""
     assert split in ("train", "test")
     classes = bench.train_classes if split == "train" else bench.test_classes
     tasks = bench.train_tasks if split == "train" else bench.test_tasks
     names = list(classes.keys())
     visible = [not any(t.partially_observable for t in tasks if t.env_name == n)
                for n in names]
-    return FusedBatchedEnvs(
-        [classes[n] for n in names], [envs_per_task] * len(names),
+    specs = [classes[n] if reward_function_version == "v2"
+             else registry.get_spec(n, reward_function_version) for n in names]
+    cls = FusedBatchedEnvs if fused else BatchedEnvs
+    return cls(
+        specs, [envs_per_task] * len(names),
         [bench.goal_table(n, split) for n in names], goal_visible=visible,
         **kwargs)

@@ -162,3 +162,58 @@ def test_experts_on_the_card_match_the_cpu(device):
         pol = get_policy(name)
         torch.testing.assert_close(pol(obs.to(device)).cpu(), pol(obs), rtol=0, atol=0,
                                    msg=name)
+
+
+def test_sawyer_env_on_the_card_matches_the_cpu(device):
+    """SawyerEnv with the kernel at N = 1 against SawyerEnv on the CPU (the
+    plain physics), 20 expert steps of push-v3, the CPU env restarted from
+    the card's state each step: observations, rewards and infos within
+    1e-4, one launch per step."""
+    import metaworld_tpu_torch as mw
+    from metaworld_tpu_torch.policies import get_policy
+
+    task = mw.MT1("push-v3", seed=0, num_goals=1).train_tasks[0]
+    card, cpu = (mw.SawyerEnv("push-v3", seed=0, device=d) for d in (device, "cpu"))
+    for env in (card, cpu):
+        env.set_task(task)
+    obs, _ = card.reset()
+    np.testing.assert_allclose(obs, cpu.reset()[0], rtol=0, atol=1e-6)
+    pol = get_policy("push-v3")
+    cuda_step.reset_counts()
+    for _ in range(20):
+        blob, path_length, _ = card.get_env_state()  # the generators differ by device
+        cpu.set_env_state((blob, path_length, cpu._gen.get_state()))
+        act = pol(torch.from_numpy(obs[None].astype(np.float32)))[0].numpy()
+        obs, r, te, tr, info = card.step(act)
+        obs_c, r_c, te_c, tr_c, info_c = cpu.step(act)
+        np.testing.assert_allclose(obs, obs_c, rtol=0, atol=1e-4)
+        assert abs(r - r_c) <= 1e-4 and (te, tr) == (te_c, tr_c)
+        for k in info:
+            assert abs(info[k] - info_c[k]) <= 1e-4, k
+    assert cuda_step.launches == 20
+
+
+def test_kernel_refuses_grad(device):
+    """The kernel has no backward: under autograd env_step and the fused
+    step raise and name physics='torch'; under no_grad the kernel runs, and
+    physics='torch' differentiates on the card."""
+    from metaworld_tpu_torch.envs import core, registry
+    from metaworld_tpu_torch.types import MAX_RAND
+
+    spec = registry.get_spec("reach-v3")
+    st, _ = core.env_reset(spec, torch.zeros(1, MAX_RAND, device=device), 1.0)
+    act = torch.zeros(1, 4, device=device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="physics='torch'"):
+        core.env_step(spec, st, act)
+    eng = vector.from_benchmark(benchmarks.MT1("reach-v3", seed=0, num_goals=2),
+                                envs_per_task=2, device=device)
+    state, _ = eng.reset()
+    with pytest.raises(RuntimeError, match="physics='torch'"):
+        eng.step(state, act.expand(2, 4))
+    cuda_step.reset_counts()
+    with torch.no_grad():
+        core.env_step(spec, st, act)
+    assert cuda_step.launches == 1
+    _, out = core.env_step(spec, st, act, physics="torch")
+    out.reward.sum().backward()
+    assert bool(torch.isfinite(act.grad).all()) and cuda_step.launches == 1

@@ -27,7 +27,8 @@ def test_port_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"vector.py", "physics/cuda_step.py", "physics/engine_lanes.py",
             "envs/core.py", "convert.py", "policies/base.py",
-            "evaluation.py", "wrappers.py", "gym_adapter.py"} <= names
+            "evaluation.py", "wrappers.py", "gym_adapter.py", "render.py",
+            "train_apg.py"} <= names
     tasks = [p for p in MODULES if p.parent == PKG / "envs" / "tasks"
              and p.name.endswith("_v3.py")]
     experts = [p for p in MODULES if p.parent == PKG / "policies"
@@ -49,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import metaworld_tpu_torch.vector, metaworld_tpu_torch.convert\n"
         "import metaworld_tpu_torch.evaluation, metaworld_tpu_torch.wrappers\n"
-        "from metaworld_tpu_torch.gym_adapter import make_mt_envs\n"
+        "from metaworld_tpu_torch.gym_adapter import make_mt_envs, SawyerEnv\n"
+        "import metaworld_tpu_torch.render, metaworld_tpu_torch.train_apg\n"
+        "from metaworld_tpu_torch import register_mw_envs, make_goal_hidden\n"
         "envs = make_mt_envs('MT10', device='cpu', num_goals=2)\n"
         "assert envs.num_envs == 10 and envs.device.type == 'cpu'\n"
         "from metaworld_tpu_torch.policies import implemented_policies\n"
@@ -86,3 +89,27 @@ def test_every_task_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "imported 50" in res.stdout
+
+
+def test_facade_runs_without_gymnasium():
+    """Gymnasium is optional: with it made unimportable the port imports,
+    SawyerEnv steps and renders, register_mw_envs does nothing, and no JAX
+    module is loaded."""
+    code = (
+        "import sys\n"
+        "for m in ('gymnasium', 'jax', 'jaxlib', 'flax', 'metaworld_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "import metaworld_tpu_torch as mw\n"
+        "env = mw.SawyerEnv('reach-v3', seed=1, device='cpu',\n"
+        "                   render_mode='rgb_array', width=32, height=24)\n"
+        "obs, _ = env.reset()\n"
+        "obs, r, te, tr, info = env.step(np.zeros(4))\n"
+        "assert obs.shape == (39,) and env.render().shape == (24, 32, 3)\n"
+        "mw.register_mw_envs()\n"
+        "print('no gym ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "no gym ok" in res.stdout
