@@ -231,6 +231,14 @@ def step_tables(spec: TaskSpec, device, n: int):
     return spec._cache[key]
 
 
+def select_slots(mask, a, b):
+    """Per-slot select between two batched trees (mask: (n,) bool)."""
+    def sel(x, y):
+        return torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y)
+
+    return tree_map(sel, a, b)
+
+
 def keep_stable(sim: SimState, prev: SimState):
     """The non-finite guard (ref _did_see_sim_exception, sawyer_xyz_env.py:
     235,603-619): slots whose new sim state holds a non-finite hand,
@@ -240,11 +248,7 @@ def keep_stable(sim: SimState, prev: SimState):
               & torch.isfinite(sim.obj_pos).reshape(n, -1).all(-1)
               & torch.isfinite(sim.joint_q).all(-1)
               & torch.isfinite(sim.gripper))
-
-    def sel(new, old):
-        return torch.where(stable.view((-1,) + (1,) * (new.dim() - 1)), new, old)
-
-    return tree_map(sel, sim, prev), stable
+    return select_slots(stable, sim, prev), stable
 
 
 def env_step(spec: TaskSpec, state: EnvState, action, physics: str = "auto"):
@@ -268,6 +272,12 @@ def env_step(spec: TaskSpec, state: EnvState, action, physics: str = "auto"):
         sim = cuda_step.control_step(table, ids, state.sim, action, blocks)
     else:
         sim = cuda_step.plain_control_step(table, ids, state.sim, action)
+    return step_tail(spec, state, sim, action)
+
+
+def step_tail(spec: TaskSpec, state: EnvState, sim: SimState, action):
+    """`env_step` after the physics, given the physics' new sim state
+    `sim`: the non-finite guard, path length, observation and reward."""
     sim, stable = keep_stable(sim, state.sim)
     state = state.replace(sim=sim, path_length=state.path_length + 1)
     state, out = post_step(spec, state, action)

@@ -3,7 +3,7 @@
 
 - `SawyerEnv`: the reference's single-env step/reset/set_task API over
   `envs.core.env_step` at n = 1 (the kernel on a CUDA device, the plain
-  lane engine on the CPU or with `physics="torch"`), with `render`,
+  lane engine on the CPU), with `render`,
   snapshots and pickling; `make_goal_hidden` / `make_goal_observable`.
 - `make_mt_envs` and `make_ml_envs{,_train,_test}` build a
   `vector.FusedBatchedEnvs` for a benchmark and, when any of the
@@ -48,11 +48,13 @@ class SawyerEnv(gym.Env if _HAS_GYM else object):
 
     Matches ref SawyerXYZEnv semantics: 4-dim action, 39-dim obs, set_task
     or a seed required before step, truncation at 500 steps. `device`
-    defaults to "cuda"; `physics` is `env_step`'s. A seeded env without
-    `set_task` draws its goals from `np.random.default_rng(seed)`, the
-    reference's `np_random(seed)` stream; the task's rejection loop at
-    reset draws from a `torch.Generator` seeded alike (it only runs for
-    goal vectors that fail their task's test, which those draws never are).
+    defaults to "cuda"; the step runs `env_step`'s default physics (the
+    kernel on a CUDA device, the plain lane engine on the CPU). A seeded
+    env without `set_task` draws its goals from
+    `np.random.default_rng(seed)`, the reference's `np_random(seed)`
+    stream; the task's rejection loop at reset draws from a
+    `torch.Generator` seeded alike (it only runs for goal vectors that fail
+    their task's test, which those draws never are).
     """
 
     metadata = {"render_modes": ["rgb_array", "depth_array", "human"],
@@ -63,7 +65,7 @@ class SawyerEnv(gym.Env if _HAS_GYM else object):
                  camera_name: str | None = None,
                  width: int = 480, height: int = 480,
                  reward_function_version: str = "v2", device="cuda",
-                 physics: str = "auto", **_ignored):
+                 **_ignored):
         self.env_name = env_name
         self.task_name = env_name
         self.reward_function_version = reward_function_version
@@ -74,7 +76,6 @@ class SawyerEnv(gym.Env if _HAS_GYM else object):
         self.height = int(height)
         self.max_path_length = MAX_PATH_LENGTH
         self.device = torch.device(device)
-        self.physics = physics
 
         self._rng = np.random.default_rng(seed)
         self._gen = torch.Generator(device=self.device)
@@ -132,7 +133,7 @@ class SawyerEnv(gym.Env if _HAS_GYM else object):
             raise ValueError("You must reset the env manually once truncate==True")
         act = torch.as_tensor(np.asarray(action, np.float32).reshape(1, 4),
                               device=self.device)
-        self._state, out = env_step(self.spec_, self._state, act, self.physics)
+        self._state, out = env_step(self.spec_, self._state, act)
         self.curr_path_length += 1
         info = info_dict(out)
         # one copy to the host per step
@@ -174,7 +175,6 @@ class SawyerEnv(gym.Env if _HAS_GYM else object):
             "height": self.height,
             "reward_function_version": self.reward_function_version,
             "device": str(self.device),
-            "physics": self.physics,
             "task_vec": self._task_vec,
             "goal_visible": self._goal_visible,
             "set_task_called": self._set_task_called,
@@ -189,7 +189,7 @@ class SawyerEnv(gym.Env if _HAS_GYM else object):
                       camera_name=d["camera_name"], width=d["width"],
                       height=d["height"],
                       reward_function_version=d["reward_function_version"],
-                      device=d["device"], physics=d["physics"])
+                      device=d["device"])
         self._task_vec = d["task_vec"]
         self._goal_visible = d["goal_visible"]
         self._set_task_called = d["set_task_called"]
@@ -458,13 +458,18 @@ def register_mw_envs() -> None:
     Meta-World/goal_observable for single envs through gym.make; the MT/ML
     batches, custom-mt-envs and custom-ml-envs as vector entry points
     (gym.make_vec) that return a GymVectorBatch over the fused engine.
-    Keyword arguments reach the env or the factory (`device=`, ...)."""
+    Keyword arguments reach the env or the factory (`device=`, ...).
+    IDs that another package registered (the JAX package registers the
+    same ones) are replaced, so the IDs always resolve to this package."""
     if not _HAS_GYM:
         return
     from gymnasium.envs.registration import register, registry as gym_registry
 
-    if "Meta-World/MT1" in gym_registry:
+    mt1 = gym_registry.get("Meta-World/MT1")
+    if mt1 is not None and getattr(mt1.entry_point, "__module__", None) == __name__:
         return
+    for key in [k for k in gym_registry if k.startswith("Meta-World/")]:
+        del gym_registry[key]
     register(id="Meta-World/MT1",
              entry_point=lambda env_name, seed=None, **kw: SawyerEnv(
                  env_name, seed=seed, **kw))

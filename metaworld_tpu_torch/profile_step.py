@@ -24,7 +24,7 @@ import time
 import torch
 
 from metaworld_tpu_torch import benchmarks, vector
-from metaworld_tpu_torch.envs.core import post_step
+from metaworld_tpu_torch.envs.core import keep_stable, post_step, select_slots
 from metaworld_tpu_torch.physics import cuda_step
 from metaworld_tpu_torch.types import tree_map
 
@@ -98,12 +98,7 @@ def main():
     offs = eng._offsets
 
     def guard():
-        n = eng.num_envs
-        stable = (torch.isfinite(sim.hand).all(-1)
-                  & torch.isfinite(sim.obj_pos).reshape(n, -1).all(-1)
-                  & torch.isfinite(sim.joint_q).all(-1)
-                  & torch.isfinite(sim.gripper))
-        return vector._select(stable, sim, env.sim)
+        return keep_stable(sim, env.sim)[0]
 
     def tails():
         for i, spec in enumerate(eng.specs):
@@ -112,8 +107,8 @@ def main():
 
     def autoreset():
         r = eng._reset_rows(state.goal_idx)
-        vector._select(state.pending_reset,
-                       tree_map(lambda t: t[r], eng._reset_env), env)
+        select_slots(state.pending_reset,
+                     tree_map(lambda t: t[r], eng._reset_env), env)
         return eng._reset_obs[r]
 
     layers = {

@@ -35,7 +35,7 @@ import torch
 
 from metaworld_tpu_torch.envs import registry
 from metaworld_tpu_torch.envs.core import (
-    TaskSpec, env_reset, keep_stable, post_step)
+    TaskSpec, env_reset, keep_stable, post_step, select_slots)
 from metaworld_tpu_torch.physics import cuda_step, engine_lanes
 from metaworld_tpu_torch.types import (
     MAX_PATH_LENGTH, EnvState, _Tree, tree_map)
@@ -47,14 +47,6 @@ OUT_KEYS = (
 )
 _METRICS = ("success", "near_object", "grasp_success", "grasp_reward",
             "in_place_reward", "obj_to_target", "unscaled_reward")
-
-
-def _select(mask, a, b):
-    """Per-slot select between two batched trees (mask: (n,) bool)."""
-    def sel(x, y):
-        return torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y)
-
-    return tree_map(sel, a, b)
 
 
 @dataclasses.dataclass
@@ -295,7 +287,8 @@ class FusedBatchedEnvs:
             terminated = terminated & ~pending
             truncated = truncated & ~pending
             rows = self._reset_rows(state.goal_idx)
-            env = _select(pending, tree_map(lambda t: t[rows], self._reset_env), env)
+            env = select_slots(pending,
+                               tree_map(lambda t: t[rows], self._reset_env), env)
             obs = torch.where(pending[:, None], self._reset_obs[rows], obs)
             reward = torch.where(pending, 0.0, reward)
             metrics = {k: torch.where(pending, 0.0, v) for k, v in metrics.items()}

@@ -9,7 +9,11 @@ before, and so delay, the long tests/test_engine_lanes.py (11 tests).
 Per task, from the reset of its first MT1(seed=0) goal: two slots, one
 driven by seeded random actions and one by the task's JAX scripted expert,
 for 25 steps of the JAX step; each step the port restarts from the JAX
-state and takes the same actions. The JAX step is `env_step`'s body
+state and takes the same actions. A file's tasks run together
+(`check_part`): the port's plain physics takes one call per step over all
+their slots, then `envs.core.step_tail` finishes each task's step, and on
+the first and last steps `env_step` itself must equal that bit for bit;
+each task's test reports its own result. The JAX step is `env_step`'s body
 (`metaworld_tpu/envs/core.py:207-238`) with its physics,
 `engine.control_step`, jitted once per process for every task (the scene
 is an argument) and its tail, `post_step`, jitted per task: tracing and
@@ -32,6 +36,7 @@ that step must disagree with `engine.py`'s.
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +55,8 @@ from metaworld_tpu.policies import get_policy as j_get_policy
 from metaworld_tpu_torch import convert
 from metaworld_tpu_torch.envs import core as tcore
 from metaworld_tpu_torch.envs import registry as treg
+from metaworld_tpu_torch.physics import cuda_step
+from metaworld_tpu_torch.types import tree_map
 
 STEPS = 25
 TOL = dict(hand_vel=1e-4, obj_vel=1e-4, obj_angvel=1e-4, joint_v=1e-4,
@@ -144,47 +151,114 @@ def _references(name, spec, post, state, act):
         yield "eager lane engine", eager
 
 
-def check_env_step(name):
-    """Two slots of `name` (random, expert) for STEPS steps, the port
-    restarting from the JAX state each step."""
-    spec_j, spec_t = jreg.get_spec(name), treg.get_spec(name)
+def _host(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _stack(trees):
+    return jax.tree.map(lambda *x: np.stack(x), *trees)
+
+
+def _jax_case(name):
+    """The JAX side of one task: the spec, the jitted post_step and expert,
+    and the reset state and observation of two slots at the task's first
+    MT1(seed=0) goal."""
+    spec = jreg.get_spec(name)
     vec = jbench.MT1(name, seed=0, num_goals=1).train_tasks[0].rand_vec
     rand = np.zeros(12)
     rand[: vec.shape[0]] = vec
-    st, obs = j_env_reset(spec_j, jnp.asarray(rand), jax.random.PRNGKey(0), 1.0)
-    state = jax.tree.map(lambda x: jnp.stack([x, x]), st)
-    obs = jnp.stack([obs, obs])
-    post = jax.jit(functools.partial(j_post_step, spec_j))
-    expert = jax.jit(j_get_policy(name))
-    rng = np.random.default_rng(0)
+    st, obs = j_env_reset(spec, jnp.asarray(rand), jax.random.PRNGKey(0), 1.0)
+    return types.SimpleNamespace(
+        name=name, spec=spec, post=jax.jit(functools.partial(j_post_step, spec)),
+        expert=jax.jit(j_get_policy(name)), rng=np.random.default_rng(0),
+        state=_stack([_host(st)] * 2), obs=np.stack([np.asarray(obs)] * 2))
+
+
+def _check_case(case, t, new_j, out_j, new_t, out_t, act):
+    """Raises AssertionError where a slot of the port's step is outside
+    tolerance of the jitted JAX step and of every admitted reference that
+    itself differs from the jitted step."""
+    for i, (field, err) in _bad(new_j, out_j, new_t, out_t).items():
+        jitted = (_batch1(_one(new_j, i)), _batch1(_one(out_j, i)))
+        port = (_slice(new_t, i), _slice(out_t, i))
+        tried = []
+        for what, ref in _references(case.name, case.spec, case.post,
+                                     _one(case.state, i), act[i]):
+            ref = tuple(map(_batch1, ref))
+            if _bad(*ref, *jitted):
+                tried.append(what)
+                if not _bad(*ref, *port):
+                    break
+        else:
+            raise AssertionError(
+                f"{case.name} t={t} slot {i}: {field} off by {err:.3e}; the "
+                f"admitted references that differ from the jitted step: {tried}")
+
+
+def _same(a, b):
+    """Bit-equality of two port results, (EnvState, StepOut) each."""
+    def eq(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(eq(x[k], y[k]) for k in x)
+        return np.array_equal(x, y)
+
+    return all(eq(convert.as_dict(x), convert.as_dict(y)) for x, y in zip(a, b))
+
+
+@functools.lru_cache(maxsize=None)
+def check_part(part: int) -> dict:
+    """{task: None or the first failure} over the tasks of `part`, two
+    slots each (random, expert), for STEPS steps, the port restarting from
+    the JAX state each step. The port's physics runs once per step over
+    all the part's slots (`plain_control_step` on a table of its scenes,
+    the slots being independent), then `step_tail` per task; on the first
+    and the last step `env_step` itself runs each task and must give the
+    same result bit for bit."""
+    names = tasks(part)
+    cases = [_jax_case(n) for n in names]
+    specs = [treg.get_spec(n) for n in names]
+    table = cuda_step.build_scene_table([s.scene for s in specs], "cpu")
+    ids = torch.arange(len(names), dtype=torch.int32).repeat_interleave(2)
+    failed = {}
     for t in range(STEPS):
-        act = np.stack([rng.uniform(-1, 1, 4),
-                        np.asarray(expert(obs[1]))]).astype(np.float32)
-        new_j, out_j = jax.tree.map(lambda *x: jnp.stack(x), *[
-            _guarded_step(_control, spec_j, post, _one(state, i), act[i])
-            for i in range(2)])
+        acts = [np.stack([c.rng.uniform(-1, 1, 4),
+                          np.asarray(c.expert(c.obs[1]))]).astype(np.float32)
+                for c in cases]
+        ref = [_stack([_host(_guarded_step(_control, c.spec, c.post,
+                                           _one(c.state, i), a[i]))
+                       for i in range(2)]) for c, a in zip(cases, acts)]
         with torch.inference_mode():
-            new_t, out_t = tcore.env_step(
-                spec_t, convert.env_from_dict(convert.as_dict(state), "cpu"),
-                torch.from_numpy(act), physics="torch")
-        for i, (field, err) in _bad(new_j, out_j, new_t, out_t).items():
-            # the port must agree with an admitted evaluation that itself
-            # disagrees with the jitted engine.py step
-            jitted = (_batch1(_one(new_j, i)), _batch1(_one(out_j, i)))
-            port = (_slice(new_t, i), _slice(out_t, i))
-            tried = []
-            for what, ref in _references(name, spec_j, post, _one(state, i),
-                                         act[i]):
-                ref = tuple(map(_batch1, ref))
-                if _bad(*ref, *jitted):
-                    tried.append(what)
-                    if not _bad(*ref, *port):
-                        break
-            else:
-                raise AssertionError(
-                    f"{name} t={t} slot {i}: {field} off by {err:.3e}; the "
-                    f"admitted references that differ from the jitted step: {tried}")
-        state, obs = new_j, out_j.obs
+            states = [convert.env_from_dict(convert.as_dict(c.state), "cpu")
+                      for c in cases]
+            act_t = torch.from_numpy(np.concatenate(acts))
+            sim = cuda_step.plain_control_step(
+                table, ids, tree_map(lambda *x: torch.cat(x), *[s.sim for s in states]),
+                act_t)
+            for k, (c, spec, st, (new_j, out_j)) in enumerate(
+                    zip(cases, specs, states, ref)):
+                a = act_t[2 * k:2 * k + 2]
+                new_t, out_t = tcore.step_tail(
+                    spec, st, tree_map(lambda x: x[2 * k:2 * k + 2], sim), a)
+                if c.name in failed:
+                    continue
+                try:
+                    if t in (0, STEPS - 1):
+                        assert _same(tcore.env_step(spec, st, a, physics="torch"),
+                                     (new_t, out_t)), \
+                            f"{c.name} t={t}: env_step differs from step_tail"
+                    _check_case(c, t, new_j, out_j, new_t, out_t, acts[k])
+                except AssertionError as e:
+                    failed[c.name] = str(e)
+        for c, (new_j, out_j) in zip(cases, ref):
+            c.state, c.obs = new_j, out_j.obs
+    return {n: failed.get(n) for n in names}
+
+
+def check_env_step(name):
+    """`name`'s result in its part's run (see check_part)."""
+    part = next(p for p in range(5) if name in tasks(p))
+    err = check_part(part)[name]
+    assert err is None, err
 
 
 @pytest.mark.parametrize("name", tasks(0))

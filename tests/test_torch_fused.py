@@ -149,3 +149,53 @@ def test_physics_option_resolves_by_device(engines):
         tvector.FusedBatchedEnvs([tb.train_classes["reach-v3"]], [2],
                                  [tb.goal_table("reach-v3")], physics="cuda",
                                  device="cpu")
+
+
+def test_gym_vector_batch_matches_jax_facade(engines):
+    """The port's GymVectorBatch against the JAX package's over the same
+    engines: after one sample_tasks round both reset onto the same pinned
+    goal rows, and over the same seeded actions, across the autoreset at 4
+    steps, they give the same observations, rewards, flags, infos and
+    final_info (the tolerances above) with the same dtypes; get_attr
+    agrees."""
+    from metaworld_tpu import gym_adapter as jgym
+    from metaworld_tpu_torch import gym_adapter as tgym
+
+    je, te, _ = engines
+    jb, tb = jgym.GymVectorBatch(je, seed=11), tgym.GymVectorBatch(te, seed=11)
+    for name in ("task_name", "terminate_on_success"):
+        assert tb.get_attr(name) == jb.get_attr(name)
+    for b in (jb, tb):
+        b.reset()
+        b.call("toggle_sample_tasks_on_reset", False)
+        b.call("sample_tasks")
+    (oj, _), (ot, _) = jb.reset(), tb.reset()
+    np.testing.assert_array_equal(tb._state.goal_idx.numpy(),
+                                  np.asarray(jb._state.goal_idx))
+    assert ot.dtype == oj.dtype
+    np.testing.assert_allclose(ot, oj, rtol=0, atol=1e-6)
+    rng = np.random.default_rng(0)
+    done = []
+    for t in range(6):
+        act = rng.uniform(-1, 1, (te.num_envs, 4)).astype(np.float32)
+        (*main_j, info_j), (*main_t, info_t) = jb.step(act), tb.step(act)
+        assert info_t.keys() == info_j.keys()
+        out_j, out_t = ({k: v for k, v in info.items() if k != "final_info"}
+                        for info in (info_j, info_t))
+        for k, vj, vt in zip(("obs", "reward", "terminated", "truncated"),
+                             main_j, main_t):
+            out_j[k], out_t[k] = vj, vt
+        for k in out_j:
+            assert out_t[k].dtype == out_j[k].dtype, (t, k)
+        _compare_out(out_j, {k: torch.from_numpy(v) for k, v in out_t.items()},
+                     f"t={t}")
+        fj, ft = info_j["final_info"], info_t["final_info"]
+        assert ft.keys() == fj.keys() and ft["episode"].keys() == fj["episode"].keys()
+        for vt, vj in ((ft["episode"]["r"], fj["episode"]["r"]),
+                       (ft["episode"]["l"], fj["episode"]["l"]),
+                       (ft["success"], fj["success"])):
+            assert vt.dtype == vj.dtype
+            np.testing.assert_allclose(vt, vj, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"t={t}: final_info")
+        done.append(bool(out_t["done"].any()))
+    assert done == [False, False, False, True, False, False]

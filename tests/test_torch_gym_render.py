@@ -120,9 +120,30 @@ def test_env_render_modes(tmp_path, monkeypatch):
     assert [f.split(".")[0] for f in frames] == ["000000", "000001"]
 
 
-def test_registration_and_make_vec():
-    """register_mw_envs registers the reference's IDs; gym.make gives a
-    SawyerEnv, gym.make_vec a GymVectorBatch over the fused engine."""
+@pytest.fixture
+def gym_ids():
+    """Takes the Meta-World IDs out of gymnasium's process-wide registry
+    for the test and puts back what was there after it: the JAX package
+    registers the same IDs, and its tests may run in the same process."""
+    saved = {k: v for k, v in gym.registry.items() if k.startswith("Meta-World/")}
+
+    def clear():
+        for k in [k for k in gym.registry if k.startswith("Meta-World/")]:
+            del gym.registry[k]
+
+    clear()
+    yield
+    clear()
+    gym.registry.update(saved)
+
+
+def test_registration_and_make_vec(gym_ids):
+    """register_mw_envs registers the reference's IDs, taking them over
+    from the JAX package's registration; gym.make gives a SawyerEnv,
+    gym.make_vec a GymVectorBatch over the fused engine."""
+    import metaworld_tpu as jmw
+
+    jmw.register_mw_envs()
     mw.register_mw_envs()
     ids = ["Meta-World/MT1", "Meta-World/goal_hidden", "Meta-World/goal_observable",
            "Meta-World/MT10", "Meta-World/MT25", "Meta-World/MT50",
