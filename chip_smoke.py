@@ -126,17 +126,41 @@ failure exits non-zero before the result line:
      sim state in the action on reach, push, drawer-open and hammer, in
      one BatchedEnvs and one backward pass (one slot per jacobian row); the kernel path refusing an action that requires grad
      (`env_step` and the fused engine raise, naming physics='torch'); two
-     APG updates (`train_apg`: Pi with 128 hidden units, Adam, H = 60) with
+     APG updates (`train_apg`: Pi with 128 hidden units, Adam; H = 60, then
+     H = 10 to keep the script inside its time limit) with
      finite loss and gradients, no kernel launch in the differentiable
      path. Prints the seconds per update (forward, backward) and the peak
      device memory.
+ 19. the v1 reward family: the MT50 layout of phase 9 built with
+     `reward_function_version="v1"` specs (N = 131072): kernel vs plain
+     for 2 control steps, the fused step with the kernel against the plain
+     physics on 100 slots, FUSED_STEPS fused steps with every check of
+     phase 4 (every reward and metric finite, one launch per step, no
+     host sync); the plain v1 tail recomputed on the kernel's post-step
+     state equal to the engine's reward, success and obj_to_target in
+     every value on 4 steps; the tails' ms v1 against v2 in turns on one
+     state (ATen ops of each, device kernels of a v1 step); then
+     `SawyerEnv(name, reward_function_version="v1")` on assembly,
+     basketball, button-press-topdown and hammer (one task per variant),
+     50 expert steps each with the kernel at N = 1, the reward equal to
+     the plain v1 tail on the kernel's state.
+ 20. `parallel.ShardedEnvs(MT10, envs_per_task=13106, devices=[cuda,
+     cuda])` (N = 131060, 2 shards of 65530 on one card, one stream
+     each): 20 steps with one launch per shard per step and no host
+     sync; every shard equal in every output and final state value to
+     its own FusedBatchedEnvs stepped by hand with the shard's seed and
+     actions; when more than one card is visible, the same over
+     `make_env_mesh()`; the 2-shard step against one engine of the same N
+     in turns (one card: nothing multi-GPU is measured); kernel vs plain
+     and the kernel records on a shard's layout.
 
 The line before the last is the per-kernel JSON record, one record per
 variant and path (MT10, MT25, MT50; the MT50 closed loop and the MT50
 evaluation, whose launches are phases 13's and 14's and whose times are
 phase 11's on the same layout; the ML45 test split's metalearning and
 the MT10 pipeline, timed on their own layouts; the per-env facade at
-N = 1, whose launches are phase 17's expert drive); the last line is
+N = 1, whose launches are phase 17's expert drive; the v1 MT50 layout of
+phase 19 and a shard's MT10 layout of phase 20); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -188,9 +212,15 @@ FACADE_MAX_STEPS = 500
 GYM_PER_TASK = 13107  # MT10 x 13107 = 131070 slots
 GYM_STEPS = 20
 APG_N = 64
-APG_H = 60
-APG_UPDATES = 2
+# the first APG update at the JAX recipe's horizon; the second at a smaller
+# depth, which keeps the whole script inside its time limit on a slow host
+APG_HORIZONS = (60, 10)
 GRAD_STEPS = 8
+V1_HOLD_STEPS = 2
+V1_TAIL_STEPS = 4
+V1_FACADE = ("assembly-v3", "basketball-v3", "button-press-topdown-v3", "hammer-v3")
+SHARD_PER_TASK = 13106  # MT10 x 13106 = 131060 slots, 2 shards of 65530
+SHARD_STEPS = 20
 JAC_CASES = (("reach-v3", (0.0, 0.65, 0.02, 0.0, 0.8, 0.2)),
              ("push-v3", (0.0, 0.65, 0.02, 0.05, 0.8, 0.02)),
              ("drawer-open-v3", (0.0, 0.9, 0.0)),
@@ -459,12 +489,13 @@ def hold_path(eng, dev, gen, names, path, must_see=()):
     return err_by_variant
 
 
-def fused_small(dev, gen, path, n):
+def fused_small(dev, gen, path, n, **engine_kw):
     """The fused step with the kernel against the fused step with the plain
-    physics, 12 steps of `n` slots from one shared state."""
+    physics, 12 steps of `n` slots from one shared state (`engine_kw` go to
+    both engines)."""
     from metaworld_tpu_torch import vector
 
-    kw = dict(max_episode_steps=4, task_select="pseudorandom")
+    kw = dict(max_episode_steps=4, task_select="pseudorandom", **engine_kw)
     small_k = bench_engine(dev, n, path, **kw)
     small_p = bench_engine(dev, n, path, physics="torch", **kw)
     goal_idx = torch.arange(n, device=dev, dtype=torch.int32) % 50
@@ -507,8 +538,9 @@ def fused_main(eng, dev, gen, obs_dim, tag):
     try:
         for t in range(FUSED_STEPS):
             state, out = eng.step(state, acts[t % len(acts)])
-            for k in ("obs", "reward", "episode_return", "grasp_reward",
-                      "in_place_reward", "obj_to_target"):
+            for k in ("obs", "reward", "episode_return", "success",
+                      "near_object", "grasp_success", "grasp_reward",
+                      "in_place_reward", "obj_to_target", "unscaled_reward"):
                 finite = finite & torch.isfinite(out[k]).all()
             wrapped = wrapped | (prev_done & (out["episode_length"] == 1)).any()
             crossed = crossed | (prev_done & (out["episode_length"] == 1))
@@ -562,7 +594,7 @@ def variant_records(eng, dev, act, ops, path, launches, errs, card):
         idx = torch.nonzero(variant == v).flatten()
         sim_v = sim.map(lambda t: t[idx])
         p_ms = time_ms(lambda: cuda_step.plain_control_step(
-            table, ids[idx], sim_v, act[idx]), 2, 1)
+            table, ids[idx], sim_v, act[idx]), 1, 1)
         b_bytes = (n_v * bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
         b_ops = ops[v] * 5 * n_v / F32_OPS_PER_S * 1e3
         records.append({
@@ -1318,7 +1350,7 @@ def run_facade(dev, card):
 def run_autograd(dev, card):
     """Phase 18: backprop through the plain physics on the card: a gradient
     against central differences, finite jacobians, the kernel refusing
-    grad, and two APG updates at H = 60."""
+    grad, and two APG updates (H = 60, then H = 10)."""
     from metaworld_tpu_torch import benchmarks, train_apg, vector
     from metaworld_tpu_torch.envs import core, registry
     from metaworld_tpu_torch.physics import cuda_step
@@ -1435,10 +1467,10 @@ def run_autograd(dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_step.reset_counts()
-    for u in range(APG_UPDATES):
+    for u, horizon in enumerate(APG_HORIZONS):
         opt.zero_grad(set_to_none=True)
         t0 = time.time()
-        loss, reward, success = train_apg.episode_loss(pi, apg_envs, APG_H)
+        loss, reward, success = train_apg.episode_loss(pi, apg_envs, horizon)
         torch.cuda.synchronize()
         t1 = time.time()
         loss.backward()
@@ -1448,7 +1480,7 @@ def run_autograd(dev, card):
         t2 = time.time()
         finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(norm)) and all(
             bool(torch.isfinite(p.grad).all()) for p in pi.parameters())
-        print(f"[autograd apg] {card}: update {u}: N = {APG_N}, H = {APG_H}: loss "
+        print(f"[autograd apg] {card}: update {u}: N = {APG_N}, H = {horizon}: loss "
               f"{loss.item():.5f}, mean reward {float(reward):.4f}, success "
               f"{float(success):.3f}, grad norm {float(norm):.4f}; forward "
               f"{t1 - t0:.2f} s, backward and Adam {t2 - t1:.2f} s, update "
@@ -1462,6 +1494,226 @@ def run_autograd(dev, card):
     if cuda_step.launches != 0:
         fail(f"autograd: the differentiable path launched the kernel "
              f"{cuda_step.launches} times")
+
+
+def device_kernels(fn):
+    """Device kernels one call of `fn` launches, from torch.profiler, or
+    None where the profiler does not reach the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    return n or None
+
+
+def run_v1(dev, card, gen):
+    """Phase 19: the v1 reward family on the card: the MT50 layout of
+    phase 9 built with v1 specs, kernel vs plain, the fused step with the
+    kernel against the plain physics, FUSED_STEPS fused steps with every
+    check of the main path, the plain v1 tail on the kernel's post-step
+    state against the engine's reward (bit for bit), the tails' time v1
+    against v2 in turns, and SawyerEnv(reward_function_version="v1") at
+    N = 1 on one task per variant. Returns the v1 layout's `kernels`
+    records."""
+    import metaworld_tpu_torch as mw
+    from metaworld_tpu_torch.envs import core, registry
+    from metaworld_tpu_torch.physics import cuda_step
+    from metaworld_tpu_torch.policies import get_policy
+    from metaworld_tpu_torch.rewards.v1 import V1_REWARDS
+    from metaworld_tpu_torch.types import tree_map
+
+    t_phase = time.time()
+    names = task_names("mt50")
+    eng = bench_engine(dev, N_ENVS, "mt50", max_episode_steps=MAX_EPISODE_STEPS,
+                       reward_function_version="v1")
+    if [s.reward_fn for s in eng.specs] != [V1_REWARDS[n] for n in names]:
+        fail("v1: the engine's specs do not carry the v1 reward functions")
+    gen.manual_seed(19)
+    errs = hold_steps(eng, dev, gen, V1_HOLD_STEPS, "v1 kernel-vs-plain")
+    worst = fused_small(dev, gen, "mt50", 100, reward_function_version="v1")
+    print(f"[v1 fused-small] kernel vs plain physics with v1 rewards, 12 steps x "
+          f"100 envs: worst {max(worst.values()):.3e}")
+    bad = {k: v for k, v in worst.items() if not v <= 1e-4}
+    if bad:
+        fail(f"v1: fused step with the kernel disagrees with the plain physics: {bad}")
+    launches, acts = fused_main(eng, dev, gen, 89, "v1 fused")
+
+    # the plain v1 tail on the kernel's post-step state, against the
+    # engine's reward, on the first V1_TAIL_STEPS steps from a reset
+    offs = eng._offsets
+    state, _ = eng.reset()
+    mismatched = 0
+    for t in range(V1_TAIL_STEPS):
+        act = acts[t]
+        new, out = eng.step(state, act)
+        env = new.env.replace(prev_obs=state.env.prev_obs)
+        for i, spec in enumerate(eng.specs):
+            a, b = int(offs[i]), int(offs[i + 1])
+            _, ref = core.post_step(spec, tree_map(lambda x: x[a:b], env), act[a:b])
+            for k in ("reward", "success", "obj_to_target"):
+                mismatched += int((getattr(ref, k) != out[k][a:b]).sum())
+        state = new
+    print(f"[v1 tail] plain v1 tail on the kernel's state vs the engine, "
+          f"{V1_TAIL_STEPS} steps x {eng.num_envs} envs: {mismatched} values differ")
+    if mismatched:
+        fail(f"v1: the engine's reward differs from the plain v1 tail on "
+             f"{mismatched} values")
+
+    # the tails' time, v1 against v2, in turns on the same state and actions
+    env = state.env
+    v2_specs = [registry.get_spec(n) for n in names]
+
+    def tails(specs):
+        def run():
+            for i, spec in enumerate(specs):
+                a, b = int(offs[i]), int(offs[i + 1])
+                core.post_step(spec, tree_map(lambda x: x[a:b], env), acts[0][a:b])
+        return run
+
+    turns = [(v, time_ms(tails(eng.specs if v == "v1" else v2_specs), 5))
+             for v in ("v2", "v1", "v1", "v2")]
+    ops = {v: count_aten_ops(tails(eng.specs if v == "v1" else v2_specs))
+           for v in ("v1", "v2")}
+    kernels_per_step = device_kernels(lambda: eng.step(state, acts[0]))
+    print(f"[v1 time] {card}: per-task tails over MT50 at N={eng.num_envs}, in "
+          f"turns " + ", ".join(f"{v} {ms:.2f} ms" for v, ms in turns)
+          + f"; ATen ops per tails call v1 {ops['v1']}, v2 {ops['v2']}; device "
+          f"kernels per v1 fused step {kernels_per_step}")
+
+    # SawyerEnv with the v1 family at N = 1, one task per variant
+    facade_launches = 0
+    for name in V1_FACADE:
+        env1 = mw.SawyerEnv(name, seed=0, device=dev, reward_function_version="v1")
+        env1.set_task(mw.MT1(name, seed=0, num_goals=1).train_tasks[0])
+        obs, _ = env1.reset()
+        spec = registry.get_spec(name, "v1")
+        pol = get_policy(name)
+        cuda_step.reset_counts()
+        worst_r = 0.0
+        for _ in range(FACADE_EXPERT_STEPS):
+            before = env1._state
+            act = pol(torch.from_numpy(obs[None].astype(np.float32)))[0].numpy()
+            obs, r, _, _, info = env1.step(act)
+            act_t = torch.as_tensor(np.asarray(act, np.float32).reshape(1, 4),
+                                    device=dev)
+            _, ref = core.step_tail(spec, before, env1._state.sim, act_t)
+            worst_r = max(worst_r, abs(float(ref.reward[0]) - r))
+            if not np.isfinite(r):
+                fail(f"v1 facade {name}: non-finite reward")
+        facade_launches += cuda_step.launches
+        print(f"[v1 facade] {card}: SawyerEnv({name!r}, reward_function_version="
+              f"'v1') at N = 1, {FACADE_EXPERT_STEPS} expert steps, launches "
+              f"{cuda_step.launches} (variant {int(core.step_tables(spec, dev, 1)[2].host[0, 0])}); "
+              f"last reward {r:.4f}, success {info['success']}; largest "
+              f"difference from the plain v1 tail on the kernel's state {worst_r:.3e}")
+        if cuda_step.launches != FACADE_EXPERT_STEPS or worst_r != 0.0:
+            fail(f"v1 facade {name}: {cuda_step.launches} launches, reward off "
+                 f"the plain tail by {worst_r:.3e}")
+
+    records = variant_records(eng, dev, acts[0], count_ops("mt50"), "mt50 v1",
+                              launches, errs, card)
+    print(f"[v1] phase {time.time() - t_phase:.1f} s")
+    return records
+
+
+def run_sharded(dev, card, gen):
+    """Phase 20: ShardedEnvs on MT10 over two shards on this card (and over
+    every visible card when there is more than one): SHARD_STEPS steps with
+    one launch per shard per step and no host sync, every shard bit-equal
+    to its own FusedBatchedEnvs stepped by hand with the shard's seed and
+    actions, kernel vs plain on a shard's layout, and the 2-shard step
+    against one engine of the same N in turns. Returns the per-shard
+    layout's `kernels` records."""
+    from metaworld_tpu_torch import benchmarks, vector
+    from metaworld_tpu_torch.parallel import ShardedEnvs, make_env_mesh, shard_seed
+    from metaworld_tpu_torch.physics import cuda_step
+
+    t_phase = time.time()
+    count = torch.cuda.device_count()
+    print(f"[sharded] torch.cuda.device_count() = {count}")
+    kw = dict(one_hot=True, max_episode_steps=MAX_EPISODE_STEPS)
+    bench = benchmarks.MT10(seed=0)
+
+    def check(devices, per_task, tag):
+        envs = ShardedEnvs(bench, envs_per_task=per_task, devices=devices, **kw)
+        n, m = envs.num_envs, envs.local.num_envs
+        acts = [torch.rand(n, 4, generator=gen, device=envs.devices[0]) * 2 - 1
+                for _ in range(SHARD_STEPS)]
+        states, _ = envs.reset(seed=20)
+        envs.step(states, acts[0])  # warm-up: the per-device caches
+        states, _ = envs.reset(seed=20)
+        torch.cuda.synchronize()
+        outs_all = []
+        cuda_step.reset_counts()
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for a in acts:
+                states, outs = envs.step(states, a)
+                outs_all.append(envs.gather(outs, keys=vector.OUT_KEYS))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = list(cuda_step.launches_by_variant)
+        total = cuda_step.launches
+        # every shard against its own engine, stepped by hand
+        differ = 0
+        for i, d in enumerate(envs.devices):
+            own = vector.from_benchmark(bench, envs_per_task=per_task // envs.n_shards,
+                                        device=d, **kw)
+            st, _ = own.reset(seed=shard_seed(20, i, envs.n_shards))
+            for t, a in enumerate(acts):
+                st, out = own.step(st, a[i * m:(i + 1) * m].to(d))
+                for k in vector.OUT_KEYS:
+                    differ += int((out[k].to(envs.devices[0]) != outs_all[t][k][i * m:(i + 1) * m]).sum())
+            fin = states[i].env.sim.map(lambda x: x.to(envs.devices[0]))
+            mine = st.env.sim.map(lambda x: x.to(envs.devices[0]))
+            for f in mine.__dataclass_fields__:
+                differ += int((getattr(mine, f) != getattr(fin, f)).sum())
+        finite = all(bool(torch.isfinite(o["obs"]).all() and torch.isfinite(o["reward"]).all())
+                     for o in outs_all)
+        print(f"[sharded {tag}] {card}: {envs.n_shards} shards of {m} envs on "
+              f"{[str(d) for d in envs.devices]}, {SHARD_STEPS} steps in {wall:.2f} s "
+              f"wall; launches {total}, by variant {launches}; values differing from "
+              f"the shards' own engines stepped by hand {differ}")
+        if total != SHARD_STEPS * envs.n_shards:
+            fail(f"sharded {tag}: {total} launches for {SHARD_STEPS} steps of "
+                 f"{envs.n_shards} shards")
+        if differ or not finite:
+            fail(f"sharded {tag}: {differ} values differ from the hand-run "
+                 f"shards, finite {finite}")
+        return envs, launches
+
+    envs, launches = check([dev, dev], SHARD_PER_TASK, "x2 on one card")
+    if count > 1:
+        check(make_env_mesh(), count * (SHARD_PER_TASK // count), f"x{count} cards")
+
+    # the 2-shard step against one engine of the same N, in turns
+    one = vector.from_benchmark(bench, envs_per_task=SHARD_PER_TASK, device=dev, **kw)
+    act = torch.rand(one.num_envs, 4, generator=gen, device=dev) * 2 - 1
+    st1, _ = one.reset()
+    sts, _ = envs.reset()
+    turns = []
+    for which in ("one", "two", "two", "one"):
+        fn = ((lambda: one.step(st1, act)) if which == "one"
+              else (lambda: envs.step(sts, act)))
+        turns.append((which, time_ms(fn, 10)))
+    print(f"[sharded time] {card}, one card: MT10 at N={one.num_envs}, in turns "
+          + ", ".join(f"{w} {ms:.3f} ms" for w, ms in turns)
+          + " (two = 2 shards on this card, one stream each; one = one "
+          "FusedBatchedEnvs); nothing multi-GPU is measured here")
+
+    # kernel vs plain and the records on a shard's layout
+    shard = envs.local
+    errs = hold_steps(shard, dev, gen, V1_HOLD_STEPS, "shard kernel-vs-plain")
+    records = variant_records(shard, dev, act[:shard.num_envs], count_ops("mt10"),
+                              "mt10 shard of 2", launches, errs, card)
+    print(f"[sharded] phase {time.time() - t_phase:.1f} s")
+    return records
 
 
 def main():
@@ -1593,6 +1845,10 @@ def main():
     # ---- 17. the per-env facade; 18. autograd ----
     kernels += run_facade(dev, card)
     run_autograd(dev, card)
+
+    # ---- 19. the v1 reward family; 20. ShardedEnvs ----
+    kernels += run_v1(dev, card, gen)
+    kernels += run_sharded(dev, card, gen)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

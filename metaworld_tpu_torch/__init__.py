@@ -25,7 +25,7 @@ from metaworld_tpu_torch.benchmarks import (  # noqa: F401
     CustomML,
     Task,
 )
-from metaworld_tpu_torch import evaluation, vector, wrappers  # noqa: F401
+from metaworld_tpu_torch import evaluation, parallel, vector, wrappers  # noqa: F401
 from metaworld_tpu_torch.envs.registry import ALL_V3_ENVIRONMENTS  # noqa: F401
 from metaworld_tpu_torch.gym_adapter import (  # noqa: F401
     SawyerEnv,

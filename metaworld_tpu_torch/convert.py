@@ -12,8 +12,9 @@ port draws from `torch.Generator`s instead). The scripted experts
 The wrapper states (`wrappers.RunningStat`, the reward and observation
 norm states and the RNN meta-RL state) carry over field for field, so a
 port `EnvPipeline` can continue a JAX pipeline's run
-(`pipeline_state_from_dicts`). `pi_from_flax` carries the weights of the
-flax policy of scripts/train_apg.py into `train_apg.Pi`.
+(`pipeline_state_from_dicts`). A JAX `ShardedEnvs` state splits into the
+port's per-shard states (`sharded_from_dict`). `pi_from_flax` carries the
+weights of the flax policy of scripts/train_apg.py into `train_apg.Pi`.
 """
 
 from __future__ import annotations
@@ -91,6 +92,16 @@ def fused_from_dict(d: dict, device="cuda"):
 
     return _build(FusedState, d, device,
                   nested={"env": EnvState, "sim": SimState})
+
+
+def sharded_from_dict(d: dict, devices) -> list:
+    """The per-shard states of `parallel.ShardedEnvs` on `devices` from a
+    JAX `ShardedEnvs` state (one global fused state, sharded on its env
+    axis, as `as_dict` gathers it): `fused_from_dict`'s state split along
+    the env axis, chunk i on devices[i] (`parallel.mesh.shard_batch`)."""
+    from metaworld_tpu_torch.parallel.mesh import shard_batch
+
+    return shard_batch(fused_from_dict(d, "cpu"), devices)
 
 
 def running_stat_from_dict(d: dict, device="cuda") -> wrappers.RunningStat:

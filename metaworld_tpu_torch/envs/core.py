@@ -100,30 +100,37 @@ class TaskSpec:
         return int(self.rand_low.shape[0])
 
     def consts(self, device) -> SpecConsts:
+        """The spec's constants on `device`, made on the first call: as
+        normal tensors even under inference mode, so that a later autograd
+        pass may save them."""
         key = str(torch.device(device))
         if key not in self._cache:
-            def f32(a):
-                return torch.from_numpy(
-                    np.ascontiguousarray(a, dtype=np.float32)).to(device)
-
-            scene = tree_map(
-                lambda a: torch.from_numpy(np.ascontiguousarray(
-                    a, dtype=np.int32 if np.asarray(a).dtype.kind == "i"
-                    else np.float32)).to(device), self.scene)
-            quat0 = (np.tile(np.array([1.0, 0.0, 0.0, 0.0], np.float32),
-                             (MAX_OBJ, 1))
-                     if self.obj_quat0 is None else self.obj_quat0)
-            lo_v, hi_v = obs_bounds(self, True)
-            lo_h, hi_h = obs_bounds(self, False)
-            self._cache[key] = SpecConsts(
-                scene=scene, hand_init=f32(self.hand_init_pos),
-                rand_low=f32(self.rand_low), rand_high=f32(self.rand_high),
-                quat0=f32(quat0),
-                obs_lo_visible=f32(lo_v), obs_hi_visible=f32(hi_v),
-                obs_lo_hidden=f32(lo_h), obs_hi_hidden=f32(hi_h),
-                report_off=(None if self.obj_report_off is None
-                            else f32(self.obj_report_off)))
+            with torch.inference_mode(False):
+                self._cache[key] = self._make_consts(device)
         return self._cache[key]
+
+    def _make_consts(self, device) -> SpecConsts:
+        def f32(a):
+            return torch.from_numpy(
+                np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+        scene = tree_map(
+            lambda a: torch.from_numpy(np.ascontiguousarray(
+                a, dtype=np.int32 if np.asarray(a).dtype.kind == "i"
+                else np.float32)).to(device), self.scene)
+        quat0 = (np.tile(np.array([1.0, 0.0, 0.0, 0.0], np.float32),
+                         (MAX_OBJ, 1))
+                 if self.obj_quat0 is None else self.obj_quat0)
+        lo_v, hi_v = obs_bounds(self, True)
+        lo_h, hi_h = obs_bounds(self, False)
+        return SpecConsts(
+            scene=scene, hand_init=f32(self.hand_init_pos),
+            rand_low=f32(self.rand_low), rand_high=f32(self.rand_high),
+            quat0=f32(quat0),
+            obs_lo_visible=f32(lo_v), obs_hi_visible=f32(hi_v),
+            obs_lo_hidden=f32(lo_h), obs_hi_hidden=f32(hi_h),
+            report_off=(None if self.obj_report_off is None
+                        else f32(self.obj_report_off)))
 
 
 # ---------------------------------------------------------------------------
@@ -223,10 +230,11 @@ def step_tables(spec: TaskSpec, device, n: int):
     step then reads nothing on the host."""
     key = ("step", str(torch.device(device)), int(n))
     if key not in spec._cache:
-        table = cuda_step.build_scene_table([spec.scene], device)
-        ids = torch.zeros(n, dtype=torch.int32, device=device)
-        blocks = cuda_step.block_table(np.zeros(n, np.int64), table.features,
-                                       device=device)
+        with torch.inference_mode(False):  # normal tensors (see consts)
+            table = cuda_step.build_scene_table([spec.scene], device)
+            ids = torch.zeros(n, dtype=torch.int32, device=device)
+            blocks = cuda_step.block_table(np.zeros(n, np.int64),
+                                           table.features, device=device)
         spec._cache[key] = (table, ids, blocks)
     return spec._cache[key]
 

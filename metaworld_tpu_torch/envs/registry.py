@@ -4,8 +4,8 @@ The ordering below must match the reference's ALL_V3_ENVIRONMENTS
 (ref metaworld/env_dict.py:217-270) — one-hot task IDs, benchmark splits and
 checkpoint layouts all key off this order.
 
-Copied from the JAX package's `envs/registry.py`; all 50 task modules are
-ported.
+Copied from the JAX package's `envs/registry.py`; all 50 task modules and
+both reward families are ported.
 
 Task modules register themselves lazily: each module in
 metaworld_tpu_torch/envs/tasks/ calls `register(name)(make_spec)` at import.
@@ -13,6 +13,7 @@ metaworld_tpu_torch/envs/tasks/ calls `register(name)(make_spec)` at import.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import Callable
 
@@ -92,8 +93,11 @@ def _module_for(name: str) -> str:
 
 
 def get_spec(name: str, reward_function_version: str = "v2") -> TaskSpec:
-    """Task spec for `name` (v2 reward family; "v1" raises
-    NotImplementedError)."""
+    """Task spec for `name`. `reward_function_version` selects the reward
+    family (ref sawyer_xyz_env.py:187): "v2" (default, shaped [0,10]
+    rewards) or "v1" (the legacy pre-2020 family,
+    metaworld_tpu_torch.rewards.v1): a copy of the v2 spec with its
+    `reward_fn` swapped, cached under `name + "#v1"`."""
     if name not in TASK_ID:
         raise KeyError(
             f"unknown env name {name!r}; valid names are the 50 entries of "
@@ -103,11 +107,16 @@ def get_spec(name: str, reward_function_version: str = "v2") -> TaskSpec:
         if name not in _MAKERS:
             importlib.import_module(_module_for(name))
         _SPECS[name] = _MAKERS[name](TASK_ID[name])
-    if reward_function_version == "v1":
-        raise NotImplementedError(
-            "the v1 reward family is not ported to metaworld_tpu_torch yet "
-            "(ROADMAP.md, item A14); use reward_function_version='v2'")
-    if reward_function_version != "v2":
+    if reward_function_version == "v2":
+        return _SPECS[name]
+    if reward_function_version != "v1":
         raise ValueError(
-            f"unknown reward_function_version {reward_function_version!r}")
-    return _SPECS[name]
+            f"reward_function_version must be 'v1' or 'v2', got "
+            f"{reward_function_version!r}")
+    key = name + "#v1"
+    if key not in _SPECS:
+        from metaworld_tpu_torch.rewards.v1 import V1_REWARDS
+
+        _SPECS[key] = dataclasses.replace(
+            _SPECS[name], reward_fn=V1_REWARDS[name])
+    return _SPECS[key]

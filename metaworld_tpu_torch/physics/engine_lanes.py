@@ -310,13 +310,16 @@ _REACH_CACHE: dict = {}
 
 
 def _reach_tables(device):
-    """(lo, hi, n-1, flat grid) on `device`, copied there once."""
+    """(lo, hi, n-1, flat grid) on `device`, copied there once (as normal
+    tensors even when the first caller runs under inference mode, so that
+    later autograd may save them)."""
     key = str(device)
     if key not in _REACH_CACHE:
-        _REACH_CACHE[key] = tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (engine.REACH_LO, engine.REACH_HI,
-                      (_RN - 1).astype(np.float32), _RGRID_FLAT))
+        with torch.inference_mode(False):
+            _REACH_CACHE[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (engine.REACH_LO, engine.REACH_HI,
+                          (_RN - 1).astype(np.float32), _RGRID_FLAT))
     return _REACH_CACHE[key]
 
 

@@ -55,3 +55,18 @@ def quat_to_mat(q):
         ],
         dim=-2,
     )
+
+
+def norm_fma(x):
+    """Euclidean norm over the last axis of x (n, k), rounded as XLA rounds
+    jnp.linalg.norm in float32: the squares are summed by a chain of fused
+    multiply-adds from the first component to the last, then one sqrt.
+    Each fused step runs in float64, where the product of two float32
+    numbers is exact, and rounds to float32 once. The sqrt also runs in
+    float64, whose one rounding to float32 is then the correctly rounded
+    float32 sqrt (torch's float32 sqrt on the CPU is not)."""
+    x64 = x.double()
+    acc = x[..., 0] * x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = torch.addcmul(acc.double(), x64[..., i], x64[..., i]).float()
+    return torch.sqrt(acc.double()).float()

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from metaworld_tpu_torch.physics.maths import norm_fma as norm  # noqa: F401
+
 # (device, values) -> (1, k) float32 constant row, made on the first call
 # per device and reused after it
 _CONSTS: dict = {}
@@ -25,8 +27,9 @@ def const(like: torch.Tensor, *values: float) -> torch.Tensor:
     key = (like.device, values)
     t = _CONSTS.get(key)
     if t is None:
-        t = _CONSTS[key] = torch.tensor([values], dtype=torch.float32,
-                                        device=like.device)
+        with torch.inference_mode(False):  # a normal tensor, reusable by autograd
+            t = _CONSTS[key] = torch.tensor([values], dtype=torch.float32,
+                                            device=like.device)
     return t
 
 
@@ -67,18 +70,3 @@ def select(*cases, default):
             cond = cond[:, None]
         out = torch.where(cond, value, out)
     return out
-
-
-def norm(x):
-    """Euclidean norm over the last axis of x (n, k), rounded as XLA rounds
-    jnp.linalg.norm in float32: the squares are summed by a chain of fused
-    multiply-adds from the first component to the last, then one sqrt.
-    Each fused step runs in float64, where the product of two float32
-    numbers is exact, and rounds to float32 once. The sqrt also runs in
-    float64, whose one rounding to float32 is then the correctly rounded
-    float32 sqrt (torch's float32 sqrt on the CPU is not)."""
-    x64 = x.double()
-    acc = x[..., 0] * x[..., 0]
-    for i in range(1, x.shape[-1]):
-        acc = torch.addcmul(acc.double(), x64[..., i], x64[..., i]).float()
-    return torch.sqrt(acc.double()).float()

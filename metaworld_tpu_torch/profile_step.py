@@ -24,6 +24,7 @@ import time
 import torch
 
 from metaworld_tpu_torch import benchmarks, vector
+from metaworld_tpu_torch.envs import registry
 from metaworld_tpu_torch.envs.core import keep_stable, post_step, select_slots
 from metaworld_tpu_torch.physics import cuda_step
 from metaworld_tpu_torch.types import tree_map
@@ -52,16 +53,18 @@ TASK_SETS = {"mt10": benchmarks.MT10, "mt25": benchmarks.MT25,
              "mt50": benchmarks.MT50}
 
 
-def bench_engine(dev, n_envs, tasks="mt10", seed=0, **kw) -> vector.FusedBatchedEnvs:
+def bench_engine(dev, n_envs, tasks="mt10", seed=0,
+                 reward_function_version="v2", **kw) -> vector.FusedBatchedEnvs:
     """A task set as bench.py lays out MT10: one-hot ids, `n_envs` slots
     split evenly over its tasks (the remainder to the first), goal tables
-    of the benchmark made with `seed`; `kw` goes to FusedBatchedEnvs."""
+    of the benchmark made with `seed`, the tasks' specs of the reward
+    family `reward_function_version`; `kw` goes to FusedBatchedEnvs."""
     bench = TASK_SETS[tasks](seed=seed)
     names = list(bench.train_classes.keys())
     base, rem = divmod(n_envs, len(names))
     counts = [base + (1 if i < rem else 0) for i in range(len(names))]
     return vector.FusedBatchedEnvs(
-        [bench.train_classes[n] for n in names], counts,
+        [registry.get_spec(n, reward_function_version) for n in names], counts,
         [bench.goal_table(n) for n in names], goal_visible=True, one_hot=True,
         device=dev, **kw)
 

@@ -335,9 +335,9 @@ def from_benchmark(bench, split: str = "train", envs_per_task: int = 1,
     "test"), goals from that task's goal table of the split; the goal is
     hidden for tasks whose split is partially observable (the ML
     benchmarks). `fused=False` builds a `BatchedEnvs` (plain, differentiable
-    physics by default). Only the v2 reward family is ported:
-    `reward_function_version="v1"` raises NotImplementedError. `kwargs` go
-    to the engine."""
+    physics by default). `reward_function_version` selects "v2" (default)
+    or the legacy "v1" reward family (`registry.get_spec`). `kwargs` go to
+    the engine."""
     assert split in ("train", "test")
     classes = bench.train_classes if split == "train" else bench.test_classes
     tasks = bench.train_tasks if split == "train" else bench.test_tasks

@@ -121,3 +121,31 @@ def test_kernel_path_refuses_grad():
     # on the CPU the wrapper runs the plain version, which differentiates
     out = cuda_step.control_step(table, ids, st.sim, act, blocks)
     assert out.hand.requires_grad
+
+
+def test_caches_made_under_inference_mode_stay_differentiable():
+    """The per-device caches (a spec's constants and one-task tables, the
+    reach-envelope tables, the experts' constant rows) are made by their
+    first caller; a first call under torch.inference_mode() must still
+    leave normal tensors, which a later autograd pass may save."""
+    import dataclasses
+
+    from metaworld_tpu_torch.physics import engine_lanes
+    from metaworld_tpu_torch.policies import base, get_policy
+
+    _, st = _state("reach-v3", REACH_VEC)
+    spec = dataclasses.replace(registry.get_spec("reach-v3"), _cache={})
+    engine_lanes._REACH_CACHE.pop("cpu", None)
+    for key in [k for k in base._CONSTS if k[0].type == "cpu"]:
+        del base._CONSTS[key]
+    with torch.inference_mode():
+        _, out = tcore.env_step(spec, st, torch.zeros(1, 4), physics="torch")
+        get_policy("reach-v3")(out.obs)
+    cached = (list(spec.consts("cpu").__dict__.values())
+              + list(engine_lanes._reach_tables("cpu"))
+              + [t for k, t in base._CONSTS.items() if k[0].type == "cpu"])
+    assert all(not t.is_inference() for t in cached if isinstance(t, torch.Tensor))
+    a = torch.zeros(1, 4, requires_grad=True)
+    _, out = tcore.env_step(spec, st, a, physics="torch")
+    (out.reward.sum() + get_policy("reach-v3")(out.obs).sum()).backward()
+    assert bool(torch.isfinite(a.grad).all()) and float(a.grad.abs().sum()) > 0

@@ -37,12 +37,23 @@ def _benches():
     return jbench.MT10(seed=0, num_goals=N_GOALS), tbench.MT10(seed=0, num_goals=N_GOALS)
 
 
+_JAX_RESETS = {}
+
+
 def _jax_reset(name, jb=None):
+    """The JAX reset of every goal row of `name` in `jb` (MT10 by default),
+    traced and compiled once per (task, benchmark): the reset, step-tail
+    and perturbation checks of a task share it (JAX arrays, never
+    written)."""
     jb = jb or _benches()[0]
-    spec = jb.train_classes[name]
-    rows = jnp.asarray(jb.goal_table(name))
-    keys = jax.random.split(jax.random.PRNGKey(0), rows.shape[0])
-    return jax.jit(jax.vmap(lambda r, k: j_env_reset(spec, r, k, 1.0)))(rows, keys)
+    key = (name, id(jb))
+    if key not in _JAX_RESETS:
+        spec = jb.train_classes[name]
+        rows = jnp.asarray(jb.goal_table(name))
+        keys = jax.random.split(jax.random.PRNGKey(0), rows.shape[0])
+        _JAX_RESETS[key] = (jb, jax.jit(jax.vmap(
+            lambda r, k: j_env_reset(spec, r, k, 1.0)))(rows, keys))
+    return _JAX_RESETS[key][1]
 
 
 def _assert_tree_close(a, b, atol, path=""):

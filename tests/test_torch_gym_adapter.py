@@ -83,11 +83,17 @@ def test_step_before_task_raises():
 
 
 def test_v1_rewards_are_not_ported():
-    with pytest.raises(NotImplementedError, match="A14"):
-        mw.SawyerEnv("push-v3", device="cpu", reward_function_version="v1")
-    with pytest.raises(NotImplementedError, match="A14"):
-        mw.vector.from_benchmark(mw.MT1("push-v3", seed=0, num_goals=1),
-                                 reward_function_version="v1", device="cpu")
+    """The refusal this test held is gone with the v1 port (ROADMAP A14):
+    `SawyerEnv` and `from_benchmark` now build on the v1 specs, and only
+    an unknown version is refused. tests/test_torch_v1_engine.py holds the
+    v1 results against the JAX package."""
+    env = mw.SawyerEnv("push-v3", device="cpu", reward_function_version="v1")
+    assert env.spec_ is registry.get_spec("push-v3", "v1")
+    envs = mw.vector.from_benchmark(mw.MT1("push-v3", seed=0, num_goals=1),
+                                    reward_function_version="v1", device="cpu")
+    assert envs.specs == [registry.get_spec("push-v3", "v1")]
+    with pytest.raises(ValueError):
+        mw.SawyerEnv("push-v3", device="cpu", reward_function_version="v0")
 
 
 def test_truncation_enforced():

@@ -28,7 +28,8 @@ def test_port_has_modules():
     assert {"vector.py", "physics/cuda_step.py", "physics/engine_lanes.py",
             "envs/core.py", "convert.py", "policies/base.py",
             "evaluation.py", "wrappers.py", "gym_adapter.py", "render.py",
-            "train_apg.py"} <= names
+            "train_apg.py", "rewards/v1.py", "parallel/mesh.py",
+            "parallel/sharded.py"} <= names
     tasks = [p for p in MODULES if p.parent == PKG / "envs" / "tasks"
              and p.name.endswith("_v3.py")]
     experts = [p for p in MODULES if p.parent == PKG / "policies"
@@ -52,6 +53,10 @@ def test_importing_the_port_loads_no_jax():
         "import metaworld_tpu_torch.evaluation, metaworld_tpu_torch.wrappers\n"
         "from metaworld_tpu_torch.gym_adapter import make_mt_envs, SawyerEnv\n"
         "import metaworld_tpu_torch.render, metaworld_tpu_torch.train_apg\n"
+        "import metaworld_tpu_torch.rewards.v1\n"
+        "from metaworld_tpu_torch.parallel import ShardedEnvs, make_env_mesh\n"
+        "from metaworld_tpu_torch.envs import registry\n"
+        "assert all(registry.get_spec(n, 'v1') for n in registry.ALL_V3_ENVIRONMENTS)\n"
         "from metaworld_tpu_torch import register_mw_envs, make_goal_hidden\n"
         "envs = make_mt_envs('MT10', device='cpu', num_goals=2)\n"
         "assert envs.num_envs == 10 and envs.device.type == 'cpu'\n"

@@ -5,7 +5,9 @@ adds; test_torch_kernel_host_mt50.py holds those MT50 adds).
 
 Each of the four template instantiations (pallas_step's v0..v3) runs the
 envs it is sound for, through the same packed-row interface the kernel
-uses, for 25 control steps that restart from the plain version's state.
+uses, for 25 control steps that restart from the plain version's state
+(variant v's actions from seed v; the four variants' trajectories of a
+batch are stepped together, one plain call per step).
 The host build makes no fused multiply-adds, but its sinf/cosf/expf are
 glibc's and PyTorch's are its own vectorised ones, so the two can differ by
 an ulp. Fields are held at 1e-5 plus 1e-6 of their magnitude; the velocity
@@ -20,6 +22,7 @@ straddle two tasks and every variant is dispatched.
 """
 
 import ctypes
+import functools
 import shutil
 
 import numpy as np
@@ -113,19 +116,35 @@ def plain_steps(table, ids, env, mode, seed):
     """25 control steps of the plain version from the batch `env`, each
     from the last one's result: [(state, action, result)]. The seek mode
     steers to obj_init_pos and closes the grip within 3 cm of it."""
-    n = ids.shape[0]
-    rng = np.random.default_rng(seed)
-    sim, steps = env.sim, []
+    return plain_steps_many(table, ids, env, mode, [seed])[0]
+
+
+def plain_steps_many(table, ids, env, mode, seeds):
+    """`plain_steps` of one copy of the batch per seed, all copies stepped
+    by one plain call per step (the lanes are independent): one list of
+    (state, action, result) per seed, each copy's actions drawn from its
+    own seed's generator."""
+    n, k = ids.shape[0], len(seeds)
+    rngs = [np.random.default_rng(seed) for seed in seeds]
+    ids_k = ids.repeat(k)
+    sim = tree_map(lambda x: torch.cat([x] * k), env.sim)
+    steps = [[] for _ in seeds]
     for t in range(25):
-        act = rng.uniform(-1, 1, (n, 4)).astype(np.float32)
-        if mode == "seek":
-            d = (env.obj_init_pos[:, 0] - sim.hand).numpy()
-            act[:, :3] = np.clip(d * 60.0 + 0.3 * act[:, :3], -1, 1)
-            act[:, 3] = np.where(np.linalg.norm(d, axis=1) < 0.03, 1.0,
-                                 act[:, 3])
-        act = torch.from_numpy(act)
-        ref = cuda_step.plain_control_step(table, ids, sim, act)
-        steps.append((sim, act, ref))
+        acts = []
+        for j, rng in enumerate(rngs):
+            act = rng.uniform(-1, 1, (n, 4)).astype(np.float32)
+            if mode == "seek":
+                d = (env.obj_init_pos[:, 0] - sim.hand[j * n:(j + 1) * n]).numpy()
+                act[:, :3] = np.clip(d * 60.0 + 0.3 * act[:, :3], -1, 1)
+                act[:, 3] = np.where(np.linalg.norm(d, axis=1) < 0.03, 1.0,
+                                     act[:, 3])
+            acts.append(act)
+        act = torch.from_numpy(np.concatenate(acts))
+        ref = cuda_step.plain_control_step(table, ids_k, sim, act)
+        for j in range(k):
+            part = slice(j * n, (j + 1) * n)
+            steps[j].append((tree_map(lambda x: x[part], sim), act[part],
+                             tree_map(lambda x: x[part], ref)))
         sim = ref
     return steps
 
@@ -173,11 +192,22 @@ def variant_runner(host_lib, variant, table, ids):
     return run, torch.from_numpy(ok)
 
 
+@functools.lru_cache(maxsize=None)
+def _variant_trajectories(mode, names):
+    """The batch and the plain trajectory of every variant in `mode`,
+    variant v's actions from seed v, made in one plain run."""
+    table, ids, env = _batch(near=mode == "seek",
+                             names=None if names is None else list(names))
+    return table, ids, plain_steps_many(table, ids, env, mode, range(4))
+
+
 def check_variant(host_lib, variant, mode, names=None):
     """The per-env entry point in `variant` on the envs it is sound for."""
-    table, ids, env = _batch(near=mode == "seek", names=names)
+    table, ids, trajectories = _variant_trajectories(
+        mode, None if names is None else tuple(names))
     run, mask = variant_runner(host_lib, variant, table, ids)
-    _hold_against_plain(run, table, ids, env, mode, variant, mask, f"v{variant}")
+    hold_steps(run, table, ids, trajectories[variant], mask,
+               f"v{variant} {mode}")
 
 
 @pytest.mark.parametrize("mode", ["random", "seek"])

@@ -4,6 +4,7 @@ per-block kernel variants and the kernel's block table, the kernel header's
 row offsets, and the state converter."""
 
 import dataclasses
+import functools
 import pathlib
 import re
 import types as pytypes
@@ -30,7 +31,12 @@ CSRC = pathlib.Path(cuda_step.__file__).resolve().parent.parent / "csrc"
 
 def _jax_reset_batch(names, per_task=2, seed=0):
     """JAX reset states of `per_task` slots of each task, stacked, with the
-    per-slot scene rows."""
+    per-slot scene rows; made once per arguments (never written)."""
+    return _jax_resets(tuple(names), per_task, seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_resets(names, per_task, seed):
     bench = jbench.MT10(seed=seed, num_goals=per_task)
     sims, scenes, envs = [], [], []
     for n in names:

@@ -19,7 +19,9 @@ knife-edge contacts that alone flips a branch: the jitted and the eager
 (`jax.disable_jit`) evaluation of the same JAX function then disagree. Where
 the port disagrees with the jitted step on an env, that env's step is rerun
 eagerly, the reference is required to disagree with itself there, and the
-port is held to the eager result at the same tolerances.
+port is held to the eager result at the same tolerances. The reruns of a
+check run as one eager batch after its steps: the lanes are independent,
+and each eager call pays for every primitive's dispatch whatever its width.
 """
 
 import functools
@@ -47,7 +49,19 @@ def reset_batch(per_task=3, near=False, names=None):
     """JAX reset states for `per_task` slots of every MT10 task (or of each
     task in `names`, from its MT1 goals). With `near`, the weld is parked
     3 cm above each slot's object or handle so the steps that follow make
-    contact."""
+    contact. The resets are made once per (per_task, names) and shared by
+    a file's random and seek modes (JAX arrays, never written)."""
+    env, scene = _resets(per_task, None if names is None else tuple(names))
+    if near:
+        goal = np.asarray(env.obj_init_pos[:, 0]) + np.float32([0, 0, 0.03])
+        mocap = (goal - TCP_OFFSET).astype(np.float32)
+        env = env.replace(sim=env.sim.replace(mocap=jnp.asarray(mocap),
+                                              hand=jnp.asarray(goal)))
+    return env, scene
+
+
+@functools.lru_cache(maxsize=None)
+def _resets(per_task, names):
     envs, scenes = [], []
     for n in names or MT10:
         bench = (jbench.MT1(n, seed=0, num_goals=per_task) if names
@@ -61,11 +75,6 @@ def reset_batch(per_task=3, near=False, names=None):
             scenes.append(spec.scene_device)
     env = jax.tree.map(lambda *x: jnp.stack(x), *envs)
     scene = jax.tree.map(lambda *x: jnp.asarray(np.stack(x)), *scenes)
-    if near:
-        goal = np.asarray(env.obj_init_pos[:, 0]) + np.float32([0, 0, 0.03])
-        mocap = (goal - TCP_OFFSET).astype(np.float32)
-        env = env.replace(sim=env.sim.replace(mocap=jnp.asarray(mocap),
-                                              hand=jnp.asarray(goal)))
     return env, scene
 
 
@@ -105,14 +114,16 @@ _step_jit = jax.jit(jlanes.control_step)
 def check_control_step(mode, env, scene):
     """25 steps of the port's lane physics against the jitted JAX step,
     each from the JAX state, with the eager rerun rule of the docstring.
-    Returns the JAX states after each step."""
+    The env steps outside tolerance are rerun eagerly together, in one
+    batch after the 25 steps (the lanes are independent). Returns the JAX
+    states after each step."""
     def step_j(s, a):
         return _step_jit(scene, s, a)
     scene_t = tree_map(lambda a: convert._tensor(a, "cpu"),
                        convert.scene_from_dict(convert.as_dict(scene)))
     rng = np.random.default_rng(0)
     sim = env.sim
-    sims = []
+    sims, flagged = [], []
     for t in range(25):
         act = actions(rng, env.replace(sim=sim), mode)
         sim_j = step_j(sim, jnp.asarray(act))
@@ -120,16 +131,27 @@ def check_control_step(mode, env, scene):
             scene_t, convert.sim_from_dict(convert.as_dict(sim), "cpu"),
             torch.from_numpy(act))
         for i, (field, err) in bad_envs(sim_j, sim_t).items():
-            one = lambda tree: jax.tree.map(lambda x: x[i:i + 1], tree)
-            with jax.disable_jit():
-                sim_e = jlanes.control_step(one(scene), one(sim),
-                                            jnp.asarray(act[i:i + 1]))
-            assert bad_envs(sim_e, one(sim_j)), (
-                f"{mode} t={t} env {i}: {field} off by {err:.3e}")
-            assert not bad_envs(sim_e, tree_map(lambda x: x[i:i + 1], sim_t)), (
-                f"{mode} t={t} env {i}: port differs from eager JAX")
+            one = lambda tree: jax.tree.map(lambda x: x[i:i + 1], tree)  # noqa: E731
+            flagged.append(dict(
+                what=f"{mode} t={t} env {i}", field=field, err=err,
+                scene=one(scene), sim=one(sim), act=act[i:i + 1],
+                jitted=one(sim_j), port=tree_map(lambda x: x[i:i + 1], sim_t)))
         sim = sim_j
         sims.append(sim_j)
+    if flagged:
+        def cat(key):
+            return jax.tree.map(lambda *x: jnp.concatenate(x),
+                                *[f[key] for f in flagged])
+        with jax.disable_jit():
+            eager = jlanes.control_step(cat("scene"), cat("sim"),
+                                        jnp.asarray(np.concatenate(
+                                            [f["act"] for f in flagged])))
+        for k, f in enumerate(flagged):
+            sim_e = jax.tree.map(lambda x: x[k:k + 1], eager)
+            assert bad_envs(sim_e, f["jitted"]), (
+                f"{f['what']}: {f['field']} off by {f['err']:.3e}")
+            assert not bad_envs(sim_e, f["port"]), (
+                f"{f['what']}: port differs from eager JAX")
     return sims
 
 
