@@ -154,3 +154,26 @@ def test_sawyer_env_v1_snapshot_and_pickle_keep_the_version():
     obs_c, r_c, *_ = clone.step(np.array([0.1, 0.1, 0.0, 1.0]))
     np.testing.assert_array_equal(obs_a, obs_c)
     assert r_a == r_c
+
+
+def test_every_task_steps_with_v1():
+    """All 50 tasks build and step with the v1 family through
+    `from_benchmark` (fused and grouped, MT50) and `SawyerEnv`: finite
+    rewards from the v1 functions."""
+    bench = tbench.MT50(seed=0, num_goals=1)
+    for fused in (True, False):
+        envs = vector.from_benchmark(bench, fused=fused, device="cpu",
+                                     reward_function_version="v1")
+        assert [s.reward_fn for s in envs.specs] == [
+            V1_REWARDS[n] for n in envs.task_names]
+        state, _ = envs.reset()
+        _, out = envs.step(state, torch.zeros(envs.num_envs, 4))
+        assert out["reward"].shape == (50,)
+        assert bool(torch.isfinite(out["reward"]).all())
+    for name in registry.ALL_V3_ENVIRONMENTS:
+        env = mw.SawyerEnv(name, seed=0, device="cpu",
+                           reward_function_version="v1")
+        env.set_task(mw.MT1(name, seed=0, num_goals=1).train_tasks[0])
+        env.reset()
+        _, r, *_ = env.step(np.zeros(4))
+        assert np.isfinite(r), name
