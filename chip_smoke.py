@@ -138,7 +138,11 @@ failure exits non-zero before the result line:
      phase 4 (every reward and metric finite, one launch per step, no
      host sync); the plain v1 tail recomputed on the kernel's post-step
      state equal to the engine's reward, success and obj_to_target in
-     every value on 4 steps; the tails' ms v1 against v2 in turns on one
+     every value on 4 steps (a routing and consistency check: the engine
+     calls the same tail); on the same steps, the first 4 slots of every
+     task recomputed by the port on the CPU (held against the JAX v1
+     functions by the tests), every v1 metric within
+     test_torch_v1_rewards.py's tolerances; the tails' ms v1 against v2 in turns on one
      state (ATen ops of each, device kernels of a v1 step); then
      `SawyerEnv(name, reward_function_version="v1")` on assembly,
      basketball, button-press-topdown and hammer (one task per variant),
@@ -218,6 +222,9 @@ APG_HORIZONS = (60, 10)
 GRAD_STEPS = 8
 V1_HOLD_STEPS = 2
 V1_TAIL_STEPS = 4
+V1_CPU_SLOTS = 4
+V1_METRICS = ("reward", "unscaled_reward", "success", "near_object",
+              "grasp_success", "grasp_reward", "in_place_reward", "obj_to_target")
 V1_FACADE = ("assembly-v3", "basketball-v3", "button-press-topdown-v3", "hammer-v3")
 SHARD_PER_TASK = 13106  # MT10 x 13106 = 131060 slots, 2 shards of 65530
 SHARD_STEPS = 20
@@ -594,7 +601,7 @@ def variant_records(eng, dev, act, ops, path, launches, errs, card):
         idx = torch.nonzero(variant == v).flatten()
         sim_v = sim.map(lambda t: t[idx])
         p_ms = time_ms(lambda: cuda_step.plain_control_step(
-            table, ids[idx], sim_v, act[idx]), 1, 1)
+            table, ids[idx], sim_v, act[idx]), 2, 1)
         b_bytes = (n_v * bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
         b_ops = ops[v] * 5 * n_v / F32_OPS_PER_S * 1e3
         records.append({
@@ -1509,12 +1516,27 @@ def device_kernels(fn):
     return n or None
 
 
+def v1_off(got, ref, key, name):
+    """(values off, worst error over tolerance) of a v1 metric against its
+    reference, at tests/test_torch_v1_rewards.py's tolerances: rewards
+    within 1e-5 * max(1, |ref|) (coffee-pull-v3: max(10, |ref|), ROADMAP
+    C5), every other metric within 1e-6 * max(1, |ref|)."""
+    got, ref = got.double(), ref.double()
+    reward = key in ("reward", "unscaled_reward")
+    floor = 10.0 if reward and name == "coffee-pull-v3" else 1.0
+    tol = (1e-5 if reward else 1e-6) * ref.abs().clamp(min=floor)
+    ratio = (got - ref).abs() / tol
+    return int((ratio > 1).sum()), float(ratio.max())
+
+
 def run_v1(dev, card, gen):
     """Phase 19: the v1 reward family on the card: the MT50 layout of
     phase 9 built with v1 specs, kernel vs plain, the fused step with the
     kernel against the plain physics, FUSED_STEPS fused steps with every
     check of the main path, the plain v1 tail on the kernel's post-step
-    state against the engine's reward (bit for bit), the tails' time v1
+    state against the engine's reward (bit for bit, a routing and
+    consistency check), a sample of the card's v1 metrics against the port
+    on the CPU (test_torch_v1_rewards.py's tolerances), the tails' time v1
     against v2 in turns, and SawyerEnv(reward_function_version="v1") at
     N = 1 on one task per variant. Returns the v1 layout's `kernels`
     records."""
@@ -1541,11 +1563,14 @@ def run_v1(dev, card, gen):
         fail(f"v1: fused step with the kernel disagrees with the plain physics: {bad}")
     launches, acts = fused_main(eng, dev, gen, 89, "v1 fused")
 
-    # the plain v1 tail on the kernel's post-step state, against the
-    # engine's reward, on the first V1_TAIL_STEPS steps from a reset
+    # on the first V1_TAIL_STEPS steps from a reset: the plain v1 tail on
+    # the kernel's post-step state against the engine's reward (a routing
+    # and consistency check: the engine calls the same tail), and the first
+    # V1_CPU_SLOTS slots of every task recomputed by the port on the CPU,
+    # which tests/test_torch_v1_rewards.py holds against the JAX functions
     offs = eng._offsets
     state, _ = eng.reset()
-    mismatched = 0
+    mismatched, cpu_off, cpu_worst = 0, 0, 0.0
     for t in range(V1_TAIL_STEPS):
         act = acts[t]
         new, out = eng.step(state, act)
@@ -1555,12 +1580,24 @@ def run_v1(dev, card, gen):
             _, ref = core.post_step(spec, tree_map(lambda x: x[a:b], env), act[a:b])
             for k in ("reward", "success", "obj_to_target"):
                 mismatched += int((getattr(ref, k) != out[k][a:b]).sum())
+            c = a + V1_CPU_SLOTS
+            _, cpu = core.post_step(spec, tree_map(lambda x: x[a:c].cpu(), env),
+                                    act[a:c].cpu())
+            for k in V1_METRICS:
+                off, rel = v1_off(out[k][a:c].cpu(), getattr(cpu, k), k, spec.name)
+                cpu_off += off
+                cpu_worst = max(cpu_worst, rel)
         state = new
     print(f"[v1 tail] plain v1 tail on the kernel's state vs the engine, "
           f"{V1_TAIL_STEPS} steps x {eng.num_envs} envs: {mismatched} values differ")
+    print(f"[v1 cpu] {card}: the card's v1 metrics vs the port on the CPU, "
+          f"{V1_TAIL_STEPS} steps x {V1_CPU_SLOTS} slots x {len(eng.specs)} tasks: "
+          f"{cpu_off} values outside tolerance; worst error / tolerance {cpu_worst:.3f}")
     if mismatched:
         fail(f"v1: the engine's reward differs from the plain v1 tail on "
              f"{mismatched} values")
+    if cpu_off:
+        fail(f"v1: {cpu_off} of the card's v1 metrics are off the CPU's")
 
     # the tails' time, v1 against v2, in turns on the same state and actions
     env = state.env

@@ -129,8 +129,8 @@ class ShardedEnvs:
                               list(zip(states, acts)))
         return [r[0] for r in res], [r[1] for r in res]
 
-    def gather(self, outs, keys=("obs", "reward", "done"), device=None):
+    def gather(self, outs, keys=("obs", "reward", "done")):
         """The per-shard outputs `keys` concatenated in global slot order on
-        one device (the first shard's by default), for a learner."""
-        device = self.devices[0] if device is None else torch.device(device)
+        the first shard's device, for a learner."""
+        device = self.devices[0]
         return {k: torch.cat([o[k].to(device) for o in outs]) for k in keys}

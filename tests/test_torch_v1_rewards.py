@@ -9,13 +9,13 @@ recorded post-step observation (hammer: the recorded nail-head site) and
 the action. The port evaluates every step of a task in one batched call;
 the JAX function runs jitted under vmap.
 
-Tolerances: reward within 1e-5 * max(10, |jax|); every other EvalOut
-field within 1e-6 * max(1, |jax|). The reward's floor is 10, not 1: its
-shaping terms are O(1000) (`1000 * (maxDist - d)`, `1000 * exp(...)`), one
-float32 ulp of such a term is 6e-5, and XLA's float32 exp and torch's
-differ by an ulp, so where the terms cancel to a small reward its error is
-set by the terms (coffee-pull-v3: 1.5e-5 at a reward of 1.4 on 7 of 500
-steps; every other task holds 1e-5 * max(1, |jax|)). Distances round as
+Tolerances: reward within 1e-5 * max(1, |jax|); every other EvalOut
+field within 1e-6 * max(1, |jax|). coffee-pull-v3's reward alone takes a
+floor of 10 (ROADMAP C5): its shaping terms are O(1000) (`1000 * (maxDist
+- d)`, `1000 * exp(...)`), one float32 ulp of such a term is 6e-5, and
+XLA's float32 exp and torch's differ by an ulp, so where the terms cancel
+to a small reward its error is set by the terms (1.5e-5 at a reward of 1.4
+on 7 of 500 steps). Distances round as
 XLA's (`maths.norm_fma`). A step outside the tolerances is rerun eagerly
 in JAX (`jax.disable_jit`): XLA's fused multiply-adds under jit can flip a
 hard gate (ROADMAP C1), and the port is then held to the eager result at
@@ -46,6 +46,9 @@ FIELDS = tuple(f.name for f in dataclasses.fields(EvalOut))
 # recorded reference nut_com trace for it
 _QPOS_OBJ = {"assembly-v3", "disassemble-v3"}
 _DEFAULT_BOUNDS = (0.01, 5e-3)
+# where XLA's and torch's float32 exp differ by an ulp inside O(1000)
+# terms that cancel to a small reward (ROADMAP C5)
+_EXP_ULP_FLOOR = {"coffee-pull-v3"}
 
 
 def _replay(name):
@@ -110,7 +113,9 @@ def test_v1_reward_matches_jax_and_reference(name):
     ours = _port(name, state_j, obs, act, tcp, qpos)
     theirs = {k: np.asarray(v, np.float64)
               for k, v in jf(obs, act, tcp, qpos).items()}
-    tol = {k: ((1e-5, 10.0) if k in ("reward", "unscaled_reward")
+    # the reward's floor of 10 is coffee-pull-v3's alone (ROADMAP C5)
+    floor = 10.0 if name in _EXP_ULP_FLOOR else 1.0
+    tol = {k: ((1e-5, floor) if k in ("reward", "unscaled_reward")
                else (1e-6, 1.0)) for k in FIELDS}
     for k in FIELDS:
         assert ours[k].shape == (obs.shape[0],), k
