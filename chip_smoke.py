@@ -18,8 +18,8 @@ failure exits non-zero before the result line:
      field <= 1e-4; one launch per control step, and blocks of every
      variant v0..v3 run;
   4. MT10: the fused step (metaworld_tpu_torch.vector.FusedBatchedEnvs) at
-     N = 131072 for 120 steps, so every slot crosses autoreset at
-     max_episode_steps=100: finite outputs, episode lengths wrap to 1, the
+     N = 131072 for 60 steps, so every slot crosses autoreset at
+     max_episode_steps=50: finite outputs, episode lengths wrap to 1, the
      kernel launched exactly once per step with blocks of every variant, no
      host synchronisation inside the step loop
      (torch.cuda.set_sync_debug_mode("error")); and on a small batch, the
@@ -41,7 +41,7 @@ failure exits non-zero before the result line:
      an attached object, a hooked joint or an unanchored object, so that
      the grasp and hook branches are seen to run;
   7. MT25: the fused step with the kernel against the plain physics on 3
-     slots per task, then 120 fused steps at N = 131072 with the checks of
+     slots per task, then 60 fused steps at N = 131072 with the checks of
      phase 4 (observations (131072, 64));
   8. MT25 timings: the kernel per control step as one launch, each
      variant's blocks as one launch with its bound over the MT25 envs, the
@@ -126,7 +126,7 @@ failure exits non-zero before the result line:
      sim state in the action on reach, push, drawer-open and hammer, in
      one BatchedEnvs and one backward pass (one slot per jacobian row); the kernel path refusing an action that requires grad
      (`env_step` and the fused engine raise, naming physics='torch'); two
-     APG updates (`train_apg`: Pi with 128 hidden units, Adam; H = 60, then
+     APG updates (`train_apg`: Pi with 128 hidden units, Adam; H = 20, then
      H = 10 to keep the script inside its time limit) with
      finite loss and gradients, no kernel launch in the differentiable
      path. Prints the seconds per update (forward, backward) and the peak
@@ -157,6 +157,38 @@ failure exits non-zero before the result line:
      `make_env_mesh()`; the 2-shard step against one engine of the same N
      in turns (one card: nothing multi-GPU is measured); kernel vs plain
      and the kernel records on a shard's layout.
+ 21. the offline-data loop: `record_dataset.record` with the experts on
+     MT10 at N = 10240 (`benchmarks._mt`) for 100 steps into the native
+     store in a temporary directory (deleted after): one launch per step,
+     none dropped, every record read back by the port's reader equal to
+     what was written, env-steps/s with the IO; then `train_bc.run` at the
+     script's defaults (drawer-open-v3, 16 envs, one 500-step episode
+     recorded, 60 epochs, 500-step eval on fresh goals): the loss finite
+     and lower at the last epoch than the first, and the eval loop again
+     with no host sync and one launch per step, its success equal to the
+     run's; bc_success_rate beside the JAX script's on a CPU.
+ 22. PPO (`train_ppo`): MT10 at N = 131070 (rollout 16, 3 updates of 2
+     epochs x 4 minibatches), each rollout and GAE with one launch per
+     step and no host sync, every statistic finite, the PPO loss on an
+     update's batch lower after the learner than before in all but a
+     tenth of the updates (`check_learner`); rollout ms per step and
+     learner ms per update (CUDA events), env-steps/s and peak memory;
+     then reach-v3 for 40 updates at the script's defaults, each
+     update held to the same checks, the first and last mean reward and
+     the success rate beside the JAX script's on a CPU (whose reward falls
+     over those 40 updates: PERF.md).
+ 23. open-loop parity: the 50 golden action tapes (tests/golden) replayed
+     in one engine of 50 slots (`trajectory_parity.replay_engine`), 500
+     steps with one launch each and no host sync; every task within the
+     port's copy of the ceilings of tests/test_trajectory_parity.py, hand
+     and object p95 and reward MAE printed per task.
+ 24. the host tools: `policy_testing` on door-unlock, stick-pull,
+     button-press-wall and door-lock (goal rows 0..49 of MT1(name,
+     seed=42), 500 expert steps), the failed rows equal to
+     scripts/policy_testing.py's on a CPU; `scaling_bench --sizes 1,2` (two
+     shards repeat the one card: mechanics only), `profile_memory` on MT10
+     at 13107 per task and `keyboard_control` on piped keys, with their
+     launch counts.
 
 The line before the last is the per-kernel JSON record, one record per
 variant and path (MT10, MT25, MT50; the MT50 closed loop and the MT50
@@ -164,7 +196,11 @@ evaluation, whose launches are phases 13's and 14's and whose times are
 phase 11's on the same layout; the ML45 test split's metalearning and
 the MT10 pipeline, timed on their own layouts; the per-env facade at
 N = 1, whose launches are phase 17's expert drive; the v1 MT50 layout of
-phase 19 and a shard's MT10 layout of phase 20); the last line is
+phase 19 and a shard's MT10 layout of phase 20; the layouts of phases
+21-24, each held against the plain version for 4 control steps: MT10 at
+N = 10240, drawer-open at 16, MT10 PPO at 131070, reach-v3 PPO at 64, the
+50-slot parity engine, and the four policy_testing engines of 50); the
+last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -172,6 +208,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -183,9 +220,10 @@ import torch
 N_ENVS = 131072
 # the main path's fused steps and its episodes: long enough that every slot
 # crosses one autoreset (the reference's 500-step episodes run in phases
-# 13-14)
-FUSED_STEPS = 120
-MAX_EPISODE_STEPS = 100
+# 13-14); 60 steps of 50-step episodes keep the script inside its time
+# limit with phases 21-24
+FUSED_STEPS = 60
+MAX_EPISODE_STEPS = 50
 PHYS_STEPS = 5
 PATH_PHYS_STEPS = 25
 ML45_PER_TASK = {"train": 2913, "test": 26214}  # N = 131085 and 131070
@@ -216,9 +254,10 @@ FACADE_MAX_STEPS = 500
 GYM_PER_TASK = 13107  # MT10 x 13107 = 131070 slots
 GYM_STEPS = 20
 APG_N = 64
-# the first APG update at the JAX recipe's horizon; the second at a smaller
-# depth, which keeps the whole script inside its time limit on a slow host
-APG_HORIZONS = (60, 10)
+# two APG updates at depths below the JAX recipe's horizon of 60 (164 s an
+# update on the card), which keeps the whole script with phases 21-24
+# inside its time limit on a slow host
+APG_HORIZONS = (20, 10)
 GRAD_STEPS = 8
 V1_HOLD_STEPS = 2
 V1_TAIL_STEPS = 4
@@ -228,6 +267,28 @@ V1_METRICS = ("reward", "unscaled_reward", "success", "near_object",
 V1_FACADE = ("assembly-v3", "basketball-v3", "button-press-topdown-v3", "hammer-v3")
 SHARD_PER_TASK = 13106  # MT10 x 13106 = 131060 slots, 2 shards of 65530
 SHARD_STEPS = 20
+REC_PER_TASK = 1024  # MT10 x 1024 = 10240 slots: 1.9 MB a record
+REC_STEPS = 100      # 190 MB in all, inside the store's 256 MB ring
+PPO_ARGS = ["--bench", "MT10", "--envs-per-task", "13107", "--rollout", "16",
+            "--updates", "3", "--epochs", "2", "--minibatches", "4"]
+REACH_PPO_ARGS = ["--env", "reach-v3", "--updates", "40"]
+# scripts/train_bc.py --cpu, scripts/train_ppo.py --env reach-v3 --updates 40
+# --cpu and scripts/policy_testing.py (the JAX package on a CPU), recorded
+# in PERF.md: expectations printed beside the card's results
+JAX_CPU_BC_SUCCESS = 1.0
+JAX_CPU_REACH_PPO = {"first_mean_reward": 0.9507, "last_mean_reward": 0.492,
+                     "success_rate": 0.0}
+# the failed goal rows among rows 0..49 of MT1(name, seed=42), 500 expert
+# steps (37, 40, 47 and 48 successes)
+JAX_CPU_POLICY_TESTING = {
+    "door-unlock-v3": [2, 16, 17, 18, 19, 23, 28, 31, 33, 35, 47, 48, 49],
+    "stick-pull-v3": [4, 8, 15, 25, 34, 38, 43, 44, 46, 48],
+    "button-press-wall-v3": [1, 24, 34],
+    "door-lock-v3": [9, 16],
+}
+PT_GOALS = 50
+SCALING_ARGS = ["--sizes", "1,2", "--steps", "20"]
+KEYS_PIPED = "wwddqq ee aass x"
 JAC_CASES = (("reach-v3", (0.0, 0.65, 0.02, 0.0, 0.8, 0.2)),
              ("push-v3", (0.0, 0.65, 0.02, 0.05, 0.8, 0.02)),
              ("drawer-open-v3", (0.0, 0.9, 0.0)),
@@ -244,6 +305,11 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "unknown"
+
+
+# the plain version is dispatch-bound (0.5-1.1 s a control step at any N),
+# and every layout it is timed on has just run it in its hold: one call
+PLAIN_TIMING = dict(reps=1, warmup=0)
 
 
 def time_ms(fn, reps, warmup=2):
@@ -597,11 +663,13 @@ def variant_records(eng, dev, act, ops, path, launches, errs, card):
     for v in range(4):
         vblocks = blocks.select(blocks.host[:, 0] == v)
         n_v = int(vblocks.host[:, 2].sum())
+        if n_v == 0:  # a layout of a few tasks need not run every variant
+            continue
         k_ms = time_ms(lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, vblocks), 50)
         idx = torch.nonzero(variant == v).flatten()
         sim_v = sim.map(lambda t: t[idx])
         p_ms = time_ms(lambda: cuda_step.plain_control_step(
-            table, ids[idx], sim_v, act[idx]), 2, 1)
+            table, ids[idx], sim_v, act[idx]), **PLAIN_TIMING)
         b_bytes = (n_v * bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
         b_ops = ops[v] * 5 * n_v / F32_OPS_PER_S * 1e3
         records.append({
@@ -685,7 +753,7 @@ def run_path(path, dev, gen, card, seed, n_small, fused_mt10_ms, must_see=()):
     kernel_ms = time_ms(lambda: cuda_step.launch_rows(
         table.rows, ids, rows, ctl, blocks), 50)
     plain_ms = time_ms(lambda: cuda_step.plain_control_step(
-        table, ids, sim, act), 3, 1)
+        table, ids, sim, act), **PLAIN_TIMING)
     fused_ms = time_ms(lambda: eng.step(state, act), 20)
     ops = count_ops(path)
     b_bytes, b_ops = control_step_bound(eng, ops)
@@ -1334,7 +1402,8 @@ def run_facade(dev, card):
         ctl = torch.cat([target.T, effort[None]]).contiguous()
         rows = cuda_step.pack_sim_rows(sim).contiguous()
         k_ms = time_ms(lambda: cuda_step.launch_rows(table.rows, ids, rows, ctl, blocks), 200)
-        p_ms = time_ms(lambda: cuda_step.plain_control_step(table, ids, sim, act), 2, 1)
+        p_ms = time_ms(lambda: cuda_step.plain_control_step(table, ids, sim, act),
+                       **PLAIN_TIMING)
         step_ms = time_ms(lambda: core.env_step(spec, starts[name], act), 20)
         b_bytes = (bytes_per_env + table.rows.numel() * 4) / HBM_BYTES_PER_S * 1e3
         b_ops = ops[v] * 5 / F32_OPS_PER_S * 1e3
@@ -1357,7 +1426,7 @@ def run_facade(dev, card):
 def run_autograd(dev, card):
     """Phase 18: backprop through the plain physics on the card: a gradient
     against central differences, finite jacobians, the kernel refusing
-    grad, and two APG updates (H = 60, then H = 10)."""
+    grad, and two APG updates (H = 20, then H = 10)."""
     from metaworld_tpu_torch import benchmarks, train_apg, vector
     from metaworld_tpu_torch.envs import core, registry
     from metaworld_tpu_torch.physics import cuda_step
@@ -1753,6 +1822,397 @@ def run_sharded(dev, card, gen):
     return records
 
 
+def held_records(eng, dev, gen, path, launches, card, ops_path):
+    """The kernel against its plain version on `eng`'s layout for
+    ML45_HOLD_STEPS control steps, and the layout's `kernels` records with
+    `launches` (by variant) from its run."""
+    errs = hold_steps(eng, dev, gen, ML45_HOLD_STEPS, f"{path}-vs-plain")
+    act = torch.rand(eng.num_envs, 4, generator=gen, device=dev) * 2 - 1
+    return variant_records(eng, dev, act, count_ops(ops_path), path, launches,
+                           errs, card)
+
+
+class KeepWriter:
+    """A trajectory writer that keeps a host copy of every record it
+    passes on, for the read-back check."""
+
+    def __init__(self, writer):
+        self.writer = writer
+        self.kept = []
+
+    def write(self, rec):
+        host = {k: v.cpu().numpy() for k, v in rec.items()}
+        self.kept.append(host)
+        return self.writer.write(host)
+
+    def flush(self):
+        self.writer.flush()
+
+
+def run_offline(dev, card, gen):
+    """Phase 21: the offline-data loop. record_dataset on MT10 at N = 10240
+    for REC_STEPS steps into a temporary directory (deleted after), read
+    back with the port's reader, every record equal to what was written
+    and none dropped; then train_bc at its defaults on drawer-open-v3
+    (record, fit, closed-loop eval), its eval loop again with no host sync
+    and one launch per step. Returns the layouts' `kernels` records."""
+    import shutil
+    import tempfile
+
+    from metaworld_tpu_torch import benchmarks, record_dataset, train_bc
+    from metaworld_tpu_torch.evaluation import ScriptedAgent
+    from metaworld_tpu_torch.native import TrajectoryReader, TrajectoryWriter
+    from metaworld_tpu_torch.physics import cuda_step
+
+    t_phase = time.time()
+    envs = record_dataset.make_envs(benchmarks.MT10_LIST, REC_PER_TASK, dev)
+    agent = ScriptedAgent(envs)
+    tmp = tempfile.mkdtemp(prefix="mw_record_")
+    try:
+        path = f"{tmp}/mt10.ts"
+        with TrajectoryWriter(path) as w:
+            keep = KeepWriter(w)
+            state, obs = envs.reset(seed=0)  # warm-up: the per-device caches
+            envs.step(state, agent.eval_action(obs))
+            torch.cuda.synchronize()
+            cuda_step.reset_counts()
+            t0 = time.time()
+            record_dataset.record(envs, agent, keep, 1, REC_STEPS)
+            wall = time.time() - t0
+            stats = w.stats()
+        rec_launches = list(cuda_step.launches_by_variant)
+        total = cuda_step.launches
+        t0 = time.time()
+        back = list(TrajectoryReader(path))
+        read_s = time.time() - t0
+        differ = sum(
+            not (a.keys() == b.keys() and all(
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a))
+            for a, b in zip(keep.kept, back))
+        size = sum(a[k].nbytes for a in keep.kept for k in a)
+    finally:
+        shutil.rmtree(tmp)
+    n = envs.num_envs
+    print(f"[record] {card}: record_dataset on MT10, {n} envs, {REC_STEPS} steps: "
+          f"{stats}; {size / 1e6:.1f} MB of arrays in {wall:.2f} s wall, "
+          f"{n * REC_STEPS / wall:.0f} env-steps/s incl. IO; launches {total}, by "
+          f"variant {rec_launches}; read back {len(back)} records in {read_s:.2f} s, "
+          f"records differing from what was written {differ}")
+    if total != REC_STEPS or stats["pushed"] != REC_STEPS or stats["dropped"] != 0:
+        fail(f"record: {total} launches, {stats} for {REC_STEPS} steps")
+    if len(back) != REC_STEPS or differ:
+        fail(f"record: {len(back)} records read back, {differ} differ")
+    records = held_records(envs, dev, gen, f"mt10 record N={n}", rec_launches,
+                           card, "mt10")
+    del envs, agent, keep, back
+
+    # train_bc at the script's defaults
+    args = train_bc.parse_args(["--device", str(dev)])
+    data = os.path.join(tempfile.gettempdir(), f"bc_{args.env}.ts")
+    cuda_step.reset_counts()
+    t0 = time.time()
+    try:
+        bc = train_bc.run(args)
+    finally:
+        if os.path.exists(data):
+            os.remove(data)
+    bc_wall = time.time() - t0
+    bc_launches = cuda_step.launches
+    losses = [float(x) for x in bc["losses"]]
+    cuda_step.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = train_bc.evaluate(bc["policy"], bc["envs"], args.seed + 100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eval_launches = list(cuda_step.launches_by_variant)
+    print(f"[bc] {card}: train_bc on {args.env}, {bc['envs'].num_envs} envs, "
+          f"{args.epochs} epochs: loss first epoch {losses[0]:.5f}, last "
+          f"{losses[-1]:.5f}; bc_success_rate {bc['success_rate']:.4f} (JAX "
+          f"scripts/train_bc.py --cpu on a CPU: {JAX_CPU_BC_SUCCESS}); the eval "
+          f"loop again with no host sync: {float(again):.4f}, launches "
+          f"{cuda_step.launches}; run {bc_wall:.1f} s, {bc_launches} launches "
+          f"(record + eval)")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"bc: loss not finite or not lower at the last epoch ({losses[0]}, "
+             f"{losses[-1]})")
+    episode = train_bc.EPISODE_STEPS
+    if cuda_step.launches != episode or bc_launches != 2 * episode:
+        fail(f"bc: {cuda_step.launches} launches in the eval loop, {bc_launches} "
+             f"in the run")
+    if float(again) != bc["success_rate"]:
+        fail(f"bc: the eval loop's rerun gave {float(again)}, the run "
+             f"{bc['success_rate']}")
+    records += held_records(bc["envs"], dev, gen, f"mt1 {args.env} bc N=16",
+                            eval_launches, card, "mt50")
+    print(f"[offline] phase {time.time() - t_phase:.1f} s")
+    return records
+
+
+def ppo_update(model, opt, sched, envs, vstate, obs, pgen, args, tag):
+    """One train_ppo update, checked: the rollout and GAE with no host sync
+    and one launch per step, the learner timed apart, every statistic
+    finite. Its stats hold `probe_loss`, the PPO loss on the update's
+    whole batch before and after the learner, for `check_learner`.
+    Returns (vstate, obs, stats, launches by variant)."""
+    from metaworld_tpu_torch import train_ppo
+    from metaworld_tpu_torch.physics import cuda_step
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    cuda_step.reset_counts()
+    ev[0].record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vstate, obs, traj, last = train_ppo.rollout(model, envs, vstate, obs,
+                                                    args.rollout, pgen)
+        adv, ret = train_ppo.gae(traj["reward"], traj["value"], traj["done"],
+                                 last, args.gamma, args.lam)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ev[1].record()
+    launches = list(cuda_step.launches_by_variant)
+    if cuda_step.launches != args.rollout:
+        fail(f"{tag}: {cuda_step.launches} launches for {args.rollout} rollout steps")
+    probe = [x.reshape((-1,) + x.shape[2:])
+             for x in (traj["obs"], traj["act"], traj["logp"], adv, ret)]
+    with torch.no_grad():
+        before = train_ppo.ppo_loss(model, probe, args.clip)
+    ev[2].record()
+    loss = train_ppo.learn(model, opt, sched, traj, adv, ret, args.epochs,
+                           args.minibatches, args.clip, pgen)
+    ev[3].record()
+    with torch.no_grad():
+        after = train_ppo.ppo_loss(model, probe, args.clip)
+    torch.cuda.synchronize()
+    stats = {"loss": float(loss), "mean_reward": float(traj["reward"].mean()),
+             "success_rate": float(traj["success"].amax(0).mean()),
+             "adv_finite": bool(torch.isfinite(adv).all()
+                                and torch.isfinite(ret).all()),
+             "rollout_ms": ev[0].elapsed_time(ev[1]),
+             "learner_ms": ev[2].elapsed_time(ev[3]),
+             "probe_loss": (float(before), float(after))}
+    if not all(np.isfinite(v).all() for v in stats.values()):
+        fail(f"{tag}: non-finite statistics {stats}")
+    return vstate, obs, stats, launches
+
+
+def check_learner(rows, tag):
+    """The learner must lower its own objective: the PPO loss on each
+    update's batch falls across the learner in all but a tenth of the
+    updates (rounded down). A learner that does not update, or climbs its
+    loss, fails; a sound one may rise now and then late in a run
+    (reach-v3 at seed 0, the port with the plain physics on a CPU: in 1
+    update of 40, and on one rollout step's slice of 64 rows in 5).
+    Returns the updates where it rose."""
+    rose = [i for i, r in enumerate(rows) if not r["probe_loss"][1] < r["probe_loss"][0]]
+    if len(rose) > len(rows) // 10:
+        fail(f"{tag}: the learner did not lower its loss on its own batch in "
+             f"updates {rose} of {len(rows)}: "
+             f"{[rows[i]['probe_loss'] for i in rose]}")
+    return rose
+
+
+def run_ppo(dev, card, gen):
+    """Phase 22: train_ppo on MT10 at N = 131070 (rollout 16, 3 updates, 2
+    epochs, 4 minibatches), then reach-v3 for 40 updates at the script's
+    defaults, each update checked by `ppo_update`. Returns the layouts'
+    `kernels` records."""
+    from metaworld_tpu_torch import train_ppo
+
+    t_phase = time.time()
+    args = train_ppo.parse_args(PPO_ARGS + ["--device", str(dev)])
+    envs, model, opt, sched, pgen = train_ppo.setup(args)
+    n = envs.num_envs
+    vstate, obs = envs.reset(seed=args.seed)
+    launches = [0, 0, 0, 0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    t0 = time.time()
+    for i in range(args.updates):
+        vstate, obs, stats, step_launches = ppo_update(
+            model, opt, sched, envs, vstate, obs, pgen, args, "ppo")
+        launches = [a + b for a, b in zip(launches, step_launches)]
+        rows.append(stats)
+        print(f"[ppo] {card}: MT10, {n} envs, update {i}: rollout {args.rollout} "
+              f"steps {stats['rollout_ms'] / args.rollout:.3f} ms per step "
+              f"({args.rollout} launches, no host sync), learner "
+              f"{stats['learner_ms']:.2f} ms ({args.epochs} epochs x "
+              f"{args.minibatches} minibatches of "
+              f"{n * args.rollout // args.minibatches}); {stats} (probe_loss: the "
+              f"PPO loss on the update's batch before / after the learner)")
+    wall = time.time() - t0
+    check_learner(rows, "ppo")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[ppo] {card}: {args.updates} updates in {wall:.2f} s wall, "
+          f"{n * args.rollout * args.updates / wall:.0f} env-steps/s with the "
+          f"learner; peak memory {peak / 2**30:.2f} GiB")
+    records = held_records(envs, dev, gen, f"mt10 ppo N={n}", launches, card, "mt10")
+    del envs, model, opt, vstate, obs
+
+    # reach-v3 at the script's defaults
+    args = train_ppo.parse_args(REACH_PPO_ARGS + ["--device", str(dev)])
+    envs, model, opt, sched, pgen = train_ppo.setup(args)
+    vstate, obs = envs.reset(seed=args.seed)
+    reach_launches = [0, 0, 0, 0]
+    rows = []
+    t0 = time.time()
+    for i in range(args.updates):
+        vstate, obs, stats, step_launches = ppo_update(
+            model, opt, sched, envs, vstate, obs, pgen, args, f"ppo reach update {i}")
+        reach_launches = [a + b for a, b in zip(reach_launches, step_launches)]
+        rows.append(stats)
+        if i % 10 == 0 or i == args.updates - 1:
+            print(f"[ppo reach] update {i}: {stats}")
+    wall = time.time() - t0
+    rose = check_learner(rows, "ppo reach")
+    first, last = rows[0], rows[-1]
+    print(f"[ppo reach] {card}: reach-v3, {args.envs_per_task} envs, {args.updates} "
+          f"updates in {wall:.1f} s ({args.updates * args.rollout} launches): the "
+          f"loss on the update's batch fell across the learner in "
+          f"{args.updates - len(rose)} of {args.updates} updates (rose in {rose}); "
+          f"mean_reward first {first['mean_reward']:.4f}, last "
+          f"{last['mean_reward']:.4f} (rose: "
+          f"{last['mean_reward'] > first['mean_reward']}); success_rate "
+          f"{last['success_rate']:.4f} (JAX scripts/train_ppo.py on a CPU: "
+          f"{JAX_CPU_REACH_PPO})")
+    records += held_records(envs, dev, gen, "mt1 reach-v3 ppo N=64",
+                            reach_launches, card, "mt50")
+    print(f"[ppo] phase {time.time() - t_phase:.1f} s")
+    return records
+
+
+def run_parity(dev, card, gen):
+    """Phase 23: the 50 golden action tapes replayed open loop in one engine
+    of 50 slots (500 steps, one launch each, no host sync); every task's
+    deviation from the reference's recorded trace within the port's copy of
+    the ceilings. Returns the layout's `kernels` records."""
+    from metaworld_tpu_torch import trajectory_parity as tp
+    from metaworld_tpu_torch.envs import registry
+    from metaworld_tpu_torch.physics import cuda_step
+
+    t_phase = time.time()
+    names = registry.ALL_V3_ENVIRONMENTS
+    traces = tp.load_traces(names)
+    envs = tp.replay_engine(names, traces, dev)
+    actions = torch.from_numpy(np.stack([d["action"] for d in traces], 1)
+                               .astype(np.float32)).to(dev)
+    tp.replay(envs, actions[:2])  # warm-up: the per-device caches
+    torch.cuda.synchronize()
+    cuda_step.reset_counts()
+    t0 = time.time()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed = tp.replay(envs, actions)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = list(cuda_step.launches_by_variant)
+    total = cuda_step.launches
+    over = {}
+    for name, (ours, ref) in zip(names, tp.pairs(
+            traces, *(x.cpu().numpy() for x in replayed))):
+        sc = tp.score(name, ours, ref)
+        bad = tp.over_ceiling(sc)
+        if bad:
+            over[name] = (bad, tp.first_fork(ours, ref))
+        print(f"[parity] {name:30s} hand p95 {sc['hand_p95'] * 1000:7.1f} mm, obj "
+              f"p95 {sc['obj_p95'] * 1000:7.1f} mm, rew mae {sc['rew_mae_rel']:.3f}, "
+              f"succ ours/ref {sc['succ_ours']:.0f}/{sc['succ_ref']:.0f}"
+              + (f"; OVER CEILING {bad}, first fork (1 mm) at step "
+                 f"{over[name][1]}" if bad else ""))
+    print(f"[parity] {card}: 50 golden tapes in one engine of {envs.num_envs} slots, "
+          f"{actions.shape[0]} steps in {wall:.2f} s wall "
+          f"({wall / actions.shape[0] * 1e3:.2f} ms per step, no host sync); "
+          f"launches {total}, by variant {launches}; tasks over their ceilings "
+          f"{len(over)}")
+    if total != actions.shape[0]:
+        fail(f"parity: {total} launches for {actions.shape[0]} steps")
+    if over:
+        fail(f"parity: tasks over their ceilings: {over}")
+    records = held_records(envs, dev, gen, "mt50 parity N=50", launches, card, "mt50")
+    print(f"[parity] phase {time.time() - t_phase:.1f} s")
+    return records
+
+
+def run_tools(dev, card, gen):
+    """Phase 24: the host tools on the card. policy_testing on the four
+    tasks whose MT1(name, seed=42) rates are below 1 on the JAX engines
+    (the failed goal rows equal to the JAX script's on a CPU),
+    scaling_bench on 1 and 2 shards of cuda:0, profile_memory on MT10 at
+    13107 per task, and keyboard_control on piped keys. Returns
+    policy_testing's `kernels` records."""
+    import contextlib
+    import io
+
+    from metaworld_tpu_torch import (benchmarks, keyboard_control, policy_testing,
+                                     profile_memory, scaling_bench, vector)
+    from metaworld_tpu_torch.physics import cuda_step
+
+    t_phase = time.time()
+    records, wrong = [], {}
+    for name, expect in JAX_CPU_POLICY_TESTING.items():
+        cuda_step.reset_counts()
+        t0 = time.time()
+        succ = policy_testing.run_slots(name, n_goals=PT_GOALS, device=dev)
+        wall = time.time() - t0
+        got = int(succ.sum())
+        failed = torch.nonzero(succ == 0).flatten().tolist()
+        print(f"[policy_testing] {card}: {name}: {got}/{PT_GOALS} = "
+              f"{got / PT_GOALS:.2f}, failed rows {failed} (JAX "
+              f"scripts/policy_testing.py on a CPU: {PT_GOALS - len(expect)}/"
+              f"{PT_GOALS}, failed rows {expect}); {wall:.1f} s, launches "
+              f"{cuda_step.launches}")
+        if failed != expect:
+            wrong[name] = (failed, expect)
+        if cuda_step.launches != 500:
+            fail(f"policy_testing {name}: {cuda_step.launches} launches for 500 steps")
+        envs = vector.from_benchmark(benchmarks.MT1(name, seed=42),
+                                     envs_per_task=PT_GOALS, autoreset=False,
+                                     task_select="pseudorandom", device=dev)
+        records += held_records(envs, dev, gen, f"mt1 {name} policy_testing N=50",
+                                list(cuda_step.launches_by_variant), card, "mt50")
+    if wrong:
+        fail(f"policy_testing: failed rows differ from the JAX script's: {wrong}")
+
+    cuda_step.reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = scaling_bench.main(SCALING_ARGS + ["--device", str(dev)])
+    print(f"[scaling_bench] {card}, one card (the shards repeat {dev}: mechanics "
+          f"only): {rows}; launches {cuda_step.launches}")
+    steps = int(SCALING_ARGS[SCALING_ARGS.index("--steps") + 1])
+    if cuda_step.launches != 2 * steps * sum(r["devices"] for r in rows):
+        fail(f"scaling_bench: {cuda_step.launches} launches")
+
+    cuda_step.reset_counts()
+    mem = profile_memory.profile("MT10", PIPE_PER_TASK, dev)
+    print(f"[profile_memory] {card}: {mem}; launches {cuda_step.launches}")
+    if cuda_step.launches != 1 or not mem["device_bytes_in_use"]:
+        fail(f"profile_memory: {cuda_step.launches} launches, {mem}")
+
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(KEYS_PIPED)
+    buf = io.StringIO()
+    cuda_step.reset_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            keyboard_control.main(["--device", str(dev)])
+    finally:
+        sys.stdin = stdin
+    lines = [x for x in buf.getvalue().splitlines() if x.startswith("t=")]
+    print(f"[keyboard_control] {card}: piped keys {KEYS_PIPED!r}: {len(lines)} "
+          f"keypresses, launches {cuda_step.launches}; last line {lines[-1]!r}")
+    presses = sum(ch != "x" for ch in KEYS_PIPED.split("x")[0])
+    if len(lines) != presses or cuda_step.launches != 5 * presses:
+        fail(f"keyboard_control: {len(lines)} lines, {cuda_step.launches} launches "
+             f"for {presses} keypresses")
+    print(f"[tools] phase {time.time() - t_phase:.1f} s")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1830,7 +2290,8 @@ def main():
         ("runs", per_run_launches), ("one", one_launch))]
     kernel_ms = sum(ms for name, ms in turns if name == "one") / 2
     runs_ms = sum(ms for name, ms in turns if name == "runs") / 2
-    plain_ms = time_ms(lambda: cuda_step.plain_control_step(table, ids, sim, act), 3, 1)
+    plain_ms = time_ms(lambda: cuda_step.plain_control_step(table, ids, sim, act),
+                       **PLAIN_TIMING)
     wrapper_ms = time_ms(lambda: cuda_step.control_step(table, ids, sim, act, blocks), 20)
     fused_ms = time_ms(lambda: eng.step(state, act), 20)
 
@@ -1886,6 +2347,13 @@ def main():
     # ---- 19. the v1 reward family; 20. ShardedEnvs ----
     kernels += run_v1(dev, card, gen)
     kernels += run_sharded(dev, card, gen)
+
+    # ---- 21. record -> BC; 22. PPO; 23. parity; 24. the host tools ----
+    gen.manual_seed(21)
+    kernels += run_offline(dev, card, gen)
+    kernels += run_ppo(dev, card, gen)
+    kernels += run_parity(dev, card, gen)
+    kernels += run_tools(dev, card, gen)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,11 @@ The wrapper states (`wrappers.RunningStat`, the reward and observation
 norm states and the RNN meta-RL state) carry over field for field, so a
 port `EnvPipeline` can continue a JAX pipeline's run
 (`pipeline_state_from_dicts`). A JAX `ShardedEnvs` state splits into the
-port's per-shard states (`sharded_from_dict`). `pi_from_flax` carries the
-weights of the flax policy of scripts/train_apg.py into `train_apg.Pi`.
+port's per-shard states (`sharded_from_dict`). `pi_from_flax` and
+`bc_pi_from_flax` carry the weights of the flax policies of
+scripts/train_apg.py and scripts/train_bc.py into `train_apg.Pi`, and
+`actor_critic_from_flax` those of the flax `ActorCritic` of
+scripts/train_ppo.py into `train_ppo.ActorCritic`.
 """
 
 from __future__ import annotations
@@ -137,18 +140,53 @@ def pipeline_state_from_dicts(vstate, rnorm, onorm, rnn, device="cuda"):
             opt(obs_norm_from_dict, onorm), opt(rnn_state_from_dict, rnn))
 
 
-def pi_from_flax(params: dict, device="cuda"):
-    """`train_apg.Pi` with the weights of a flax `Pi` (its params tree as
-    nested dicts of numpy arrays: Dense_0..Dense_2, each a (in, out)
-    `kernel` and a (out,) `bias`)."""
+def _copy_dense(layer, d):
+    layer.weight.copy_(torch.from_numpy(np.array(d["kernel"], np.float32).T))
+    layer.bias.copy_(torch.from_numpy(np.array(d["bias"], np.float32)))
+
+
+def _pi(params: dict, names, device):
     from metaworld_tpu_torch.train_apg import Pi
 
     p = params.get("params", params)
-    dense = [p[f"Dense_{i}"] for i in range(3)]
+    dense = [p[n] for n in names]
     k0 = np.asarray(dense[0]["kernel"])
     pi = Pi(k0.shape[0], k0.shape[1])
     with torch.no_grad():
         for layer, d in zip(pi.layers, dense):
-            layer.weight.copy_(torch.from_numpy(np.array(d["kernel"], np.float32).T))
-            layer.bias.copy_(torch.from_numpy(np.array(d["bias"], np.float32)))
+            _copy_dense(layer, d)
     return pi.to(device)
+
+
+def pi_from_flax(params: dict, device="cuda"):
+    """`train_apg.Pi` with the weights of scripts/train_apg.py's flax `Pi`
+    (its params tree as nested dicts of numpy arrays: Dense_0..Dense_2 in
+    layer order, each a (in, out) `kernel` and a (out,) `bias`)."""
+    return _pi(params, ("Dense_0", "Dense_1", "Dense_2"), device)
+
+
+def bc_pi_from_flax(params: dict, device="cuda"):
+    """`train_apg.Pi` with the weights of scripts/train_bc.py's flax `Pi`.
+    Its nested call `nn.Dense(256)(nn.tanh(nn.Dense(256)(x)))` constructs,
+    and so names, the outer layer first: Dense_1 is the first layer,
+    Dense_0 the second and Dense_2 the head."""
+    return _pi(params, ("Dense_1", "Dense_0", "Dense_2"), device)
+
+
+def actor_critic_from_flax(params: dict, device="cuda"):
+    """`train_ppo.ActorCritic` with the weights of the flax `ActorCritic`
+    of scripts/train_ppo.py (its params tree as nested dicts of numpy
+    arrays, flax's call-order names: Dense_0, Dense_1 the actor trunk,
+    Dense_2 the mean head, Dense_3, Dense_4 the critic trunk, Dense_5 the
+    value head, and the (4,) `log_std`)."""
+    from metaworld_tpu_torch.train_ppo import ActorCritic
+
+    p = params.get("params", params)
+    k0 = np.asarray(p["Dense_0"]["kernel"])
+    model = ActorCritic(k0.shape[0], k0.shape[1])
+    layers = [*model.actor, model.mean, *model.critic, model.value]
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            _copy_dense(layer, p[f"Dense_{i}"])
+        model.log_std.copy_(torch.from_numpy(np.array(p["log_std"], np.float32)))
+    return model.to(device)

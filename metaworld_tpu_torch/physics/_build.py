@@ -4,7 +4,8 @@
 the kernel with all four substep variants) with `nvcc` for sm_90a into one
 shared library with a plain C interface, loaded with ctypes.
 `build_host()` compiles `csrc/host_step.cpp` with g++: the same substep
-arithmetic on the CPU, used only by the tests. Both write into
+arithmetic on the CPU, used only by the tests. `build_gxx` is the g++
+build both it and the trajectory store (`native/`) use. All write into
 `metaworld_tpu_torch/_build/` (ignored by git), keyed by a hash of the
 sources and flags, and raise if the compiler is missing or fails.
 """
@@ -85,23 +86,30 @@ def build_cuda() -> pathlib.Path:
     return lib
 
 
-def build_host() -> pathlib.Path:
-    """Path of the host (g++) build of the substep, compiled if needed."""
+def build_gxx(name: str, sources, main, flags, include=None) -> pathlib.Path:
+    """Path of the g++ build of `main` into `_build/{name}_{key}.so`, keyed
+    by `sources` and `flags`, compiled now if not yet built."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
-    sources = [CSRC / "substep.cuh", CSRC / "block_step.cuh",
-               CSRC / "host_step.cpp"]
-    lib = BUILD / f"libmw_host_{_key(sources, GXX_FLAGS)}.so"
+    lib = BUILD / f"{name}_{_key(sources, flags)}.so"
     if lib.exists():
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
+    inc = ["-I", str(include)] if include is not None else []
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         tmp_lib = pathlib.Path(tmp) / lib.name
-        res = subprocess.run(
-            [gxx, *GXX_FLAGS, "-I", str(CSRC), str(CSRC / "host_step.cpp"),
-             "-o", str(tmp_lib)], capture_output=True, text=True)
+        res = subprocess.run([gxx, *flags, *inc, str(main), "-o", str(tmp_lib)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"g++ failed:\n{res.stdout}{res.stderr}")
         os.replace(tmp_lib, lib)
     return lib
+
+
+def build_host() -> pathlib.Path:
+    """Path of the host (g++) build of the substep, compiled if needed."""
+    sources = [CSRC / "substep.cuh", CSRC / "block_step.cuh",
+               CSRC / "host_step.cpp"]
+    return build_gxx("libmw_host", sources, CSRC / "host_step.cpp", GXX_FLAGS,
+                     include=CSRC)

@@ -28,22 +28,27 @@ from torch import nn
 from metaworld_tpu_torch import benchmarks, vector
 
 
+def dense(n_in: int, n_out: int) -> nn.Linear:
+    """A linear layer with flax `Dense`'s default init: a LeCun-normal
+    kernel and a zero bias."""
+    layer = nn.Linear(n_in, n_out)
+    # flax's lecun_normal: truncated normal at 2 std, rescaled to
+    # variance 1 / fan_in
+    std = math.sqrt(1.0 / n_in) / 0.87962566103423978
+    nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
 class Pi(nn.Module):
     """Two tanh layers of `hidden` units and a tanh head of 4 actions (the
-    flax `Pi` of scripts/train_apg.py: Dense layers with LeCun-normal
-    kernels and zero biases)."""
+    flax `Pi` of scripts/train_apg.py and scripts/train_bc.py: Dense layers
+    with LeCun-normal kernels and zero biases)."""
 
     def __init__(self, obs_dim: int, hidden: int = 128):
         super().__init__()
-        self.layers = nn.ModuleList([nn.Linear(obs_dim, hidden),
-                                     nn.Linear(hidden, hidden),
-                                     nn.Linear(hidden, 4)])
-        for layer in self.layers:
-            # flax's lecun_normal: truncated normal at 2 std, rescaled to
-            # variance 1 / fan_in
-            std = math.sqrt(1.0 / layer.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std)
-            nn.init.zeros_(layer.bias)
+        self.layers = nn.ModuleList([dense(obs_dim, hidden),
+                                     dense(hidden, hidden), dense(hidden, 4)])
 
     def forward(self, x):
         for layer in self.layers:
