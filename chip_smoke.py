@@ -85,10 +85,11 @@ failure exits non-zero before the result line:
      mean_returns, the steps, ms per step and host syncs per step (the
      warnings of set_sync_debug_mode("warn")).
  15. metalearning_evaluation() on ML45's test split through
-     `make_ml_envs_test("ML45", seed=0, meta_batch_size=131070)` (5 x
-     26214 slots, goal hidden), with the experts as a meta-agent whose
-     init and adapt count their calls: 2 rounds of one adaptation episode
-     and one evaluation episode. Gates: init and adapt called twice, each
+     `make_ml_envs_test("ML45", seed=0, meta_batch_size=131070,
+     max_episode_steps=100)` (5 x 26214 slots, goal hidden; episodes cut
+     from 500 steps to keep the script inside its time limit), with the
+     experts as a meta-agent whose init and adapt count their calls: 2
+     rounds of one adaptation episode and one evaluation episode. Gates: init and adapt called twice, each
      buffer at least one transition; each round evaluates on the goal rows
      it adapted on, and every slot's row differs between the rounds;
      obs[:, 36:39] == 0 and finite outputs; one launch per step. Prints
@@ -126,8 +127,8 @@ failure exits non-zero before the result line:
      sim state in the action on reach, push, drawer-open and hammer, in
      one BatchedEnvs and one backward pass (one slot per jacobian row); the kernel path refusing an action that requires grad
      (`env_step` and the fused engine raise, naming physics='torch'); two
-     APG updates (`train_apg`: Pi with 128 hidden units, Adam; H = 20, then
-     H = 10 to keep the script inside its time limit) with
+     APG updates (`train_apg`: Pi with 128 hidden units, Adam; H = 10, then
+     H = 5 to keep the script inside its time limit) with
      finite loss and gradients, no kernel launch in the differentiable
      path. Prints the seconds per update (forward, backward) and the peak
      device memory.
@@ -189,6 +190,14 @@ failure exits non-zero before the result line:
      shards repeat the one card: mechanics only), `profile_memory` on MT10
      at 13107 per task and `keyboard_control` on piped keys, with their
      launch counts.
+ 25. the throughput entry point, `metaworld_tpu_torch.bench`: with the
+     per-device caches emptied, a fresh MT10 engine at N = 131072 from
+     `bench.build_envs`, one warm-up and 2 timed rounds of 20 steps of
+     fresh random actions through `bench.run`, every step from the first
+     one on under set_sync_debug_mode("error"); one launch per step running
+     every variant, a finite summed reward, the result line with bench.py's
+     four keys; then the kernel against its plain version on that engine
+     for 4 control steps. Prints the round times and the phase's seconds.
 
 The line before the last is the per-kernel JSON record, one record per
 variant and path (MT10, MT25, MT50; the MT50 closed loop and the MT50
@@ -199,8 +208,8 @@ N = 1, whose launches are phase 17's expert drive; the v1 MT50 layout of
 phase 19 and a shard's MT10 layout of phase 20; the layouts of phases
 21-24, each held against the plain version for 4 control steps: MT10 at
 N = 10240, drawer-open at 16, MT10 PPO at 131070, reach-v3 PPO at 64, the
-50-slot parity engine, and the four policy_testing engines of 50); the
-last line is
+50-slot parity engine, the four policy_testing engines of 50, and the
+bench's fresh MT10 engine of phase 25); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -209,13 +218,16 @@ from __future__ import annotations
 import functools
 import json
 import os
-import subprocess
 import sys
 import time
 import warnings
 
 import numpy as np
 import torch
+
+from metaworld_tpu_torch import devices
+from metaworld_tpu_torch.bench import build_envs
+from metaworld_tpu_torch.devices import no_host_sync, time_ms
 
 N_ENVS = 131072
 # the main path's fused steps and its episodes: long enough that every slot
@@ -242,6 +254,7 @@ LOOP_GOALS = 50
 LOOP_SEED = 42
 LOOP_BAR = 0.80  # per task (tests/test_behavioral_bar.py:38-44)
 ML45_META_BATCH = 131070
+META_EPISODE_STEPS = 100
 PIPE_PER_TASK = 13107  # MT10 x 13107 = 131070 slots
 PIPE_EPISODE = 20
 PIPE_STEPS = 60
@@ -255,9 +268,9 @@ GYM_PER_TASK = 13107  # MT10 x 13107 = 131070 slots
 GYM_STEPS = 20
 APG_N = 64
 # two APG updates at depths below the JAX recipe's horizon of 60 (164 s an
-# update on the card), which keeps the whole script with phases 21-24
-# inside its time limit on a slow host
-APG_HORIZONS = (20, 10)
+# update on the card; about 2.7 s a step of horizon), which keeps the whole
+# script with phases 21-25 inside its time limit on a slow host
+APG_HORIZONS = (10, 5)
 GRAD_STEPS = 8
 V1_HOLD_STEPS = 2
 V1_TAIL_STEPS = 4
@@ -271,6 +284,8 @@ REC_PER_TASK = 1024  # MT10 x 1024 = 10240 slots: 1.9 MB a record
 REC_STEPS = 100      # 190 MB in all, inside the store's 256 MB ring
 PPO_ARGS = ["--bench", "MT10", "--envs-per-task", "13107", "--rollout", "16",
             "--updates", "3", "--epochs", "2", "--minibatches", "4"]
+BENCH_STEPS = 20
+BENCH_ROUNDS = 2
 REACH_PPO_ARGS = ["--env", "reach-v3", "--updates", "40"]
 # scripts/train_bc.py --cpu, scripts/train_ppo.py --env reach-v3 --updates 40
 # --cpu and scripts/policy_testing.py (the JAX package on a CPU), recorded
@@ -300,29 +315,9 @@ def fail(msg):
     sys.exit(1)
 
 
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "unknown"
-
-
 # the plain version is dispatch-bound (0.5-1.1 s a control step at any N),
 # and every layout it is timed on has just run it in its hold: one call
 PLAIN_TIMING = dict(reps=1, warmup=0)
-
-
-def time_ms(fn, reps, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def task_names(path: str) -> list:
@@ -330,13 +325,6 @@ def task_names(path: str) -> list:
 
     return {"mt10": benchmarks.MT10_LIST, "mt25": benchmarks.MT25_LIST,
             "mt50": benchmarks.MT50_LIST}[path]
-
-
-def bench_engine(device, n_envs, path="mt10", **kw):
-    """bench.py's layout of the task set `path` (profile_step.bench_engine)."""
-    from metaworld_tpu_torch import profile_step
-
-    return profile_step.bench_engine(device, n_envs, path, **kw)
 
 
 def ops_per_env_substep(path: str) -> dict:
@@ -367,7 +355,7 @@ def ops_per_env_substep(path: str) -> dict:
             return out
 
     names = task_names(path)
-    eng = bench_engine("cpu", len(names), path, physics="torch")
+    eng = build_envs("cpu", len(names), path, physics="torch")
     feats = eng.scene_table.features
     state, _ = eng.reset()
     out = {}
@@ -569,8 +557,8 @@ def fused_small(dev, gen, path, n, **engine_kw):
     from metaworld_tpu_torch import vector
 
     kw = dict(max_episode_steps=4, task_select="pseudorandom", **engine_kw)
-    small_k = bench_engine(dev, n, path, **kw)
-    small_p = bench_engine(dev, n, path, physics="torch", **kw)
+    small_k = build_envs(dev, n, path, **kw)
+    small_p = build_envs(dev, n, path, physics="torch", **kw)
     goal_idx = torch.arange(n, device=dev, dtype=torch.int32) % 50
     sk, _ = small_k.reset(goal_idx=goal_idx)
     worst = {}
@@ -594,10 +582,6 @@ def fused_main(eng, dev, gen, obs_dim, tag):
     state, obs = eng.reset()
     if tuple(obs.shape) != (n, obs_dim):
         fail(f"{tag}: reset obs shape {tuple(obs.shape)}")
-    for _ in range(2):  # warm-up (first calls fill the per-device caches)
-        eng.step(state, torch.rand(n, 4, generator=gen, device=dev) * 2 - 1)
-    torch.cuda.synchronize()
-    state, _ = eng.reset()
     acts = [torch.rand(n, 4, generator=gen, device=dev) * 2 - 1 for _ in range(8)]
     finite = torch.ones((), dtype=torch.bool, device=dev)
     wrapped = torch.zeros((), dtype=torch.bool, device=dev)
@@ -607,8 +591,7 @@ def fused_main(eng, dev, gen, obs_dim, tag):
     torch.cuda.synchronize()
     cuda_step.reset_counts()
     t0 = time.time()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         for t in range(FUSED_STEPS):
             state, out = eng.step(state, acts[t % len(acts)])
             for k in ("obs", "reward", "episode_return", "success",
@@ -620,8 +603,6 @@ def fused_main(eng, dev, gen, obs_dim, tag):
             finite = finite & ~(prev_done & (out["episode_length"] != 1)).any()
             dones = dones + out["done"].sum()
             prev_done = out["done"]
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = list(cuda_step.launches_by_variant)
@@ -722,7 +703,7 @@ def run_path(path, dev, gen, card, seed, n_small, fused_mt10_ms, must_see=()):
     from metaworld_tpu_torch.physics import cuda_step
 
     names = task_names(path)
-    eng = bench_engine(dev, N_ENVS, path, max_episode_steps=MAX_EPISODE_STEPS)
+    eng = build_envs(dev, N_ENVS, path, max_episode_steps=MAX_EPISODE_STEPS)
     counts = [int(c) for c in np.bincount(eng.task_ids.cpu().numpy())]
     print(f"[{path} blocks] {len(names)} tasks, slots per task {counts}; one launch "
           f"of {eng.block_table.host.shape[0]} blocks, by variant "
@@ -801,8 +782,7 @@ def run_ml45(dev, gen, card):
         hidden = (obs[:, 36:39] == 0).all()
         cuda_step.reset_counts()
         t0 = time.time()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with no_host_sync():
             for _ in range(ML45_STEPS):
                 act = torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
                 state, out = eng.step(state, act)
@@ -810,8 +790,6 @@ def run_ml45(dev, gen, card):
                           "in_place_reward", "obj_to_target"):
                     finite = finite & torch.isfinite(out[k]).all()
                 hidden = hidden & (out["obs"][:, 36:39] == 0).all()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         wall = time.time() - t0
         print(f"[ml45 {split}] {card}: {len(eng.specs)} tasks x {per_task} = {n} "
@@ -867,29 +845,25 @@ def run_closed_loop(dev, card, mt50_records):
     from metaworld_tpu_torch.physics import cuda_step
 
     names = task_names("mt50")
-    eng = bench_engine(dev, N_ENVS, "mt50", seed=LOOP_SEED,
+    eng = build_envs(dev, N_ENVS, "mt50", seed=LOOP_SEED,
                        task_select="pseudorandom", autoreset=False)
     n, n_tasks = eng.num_envs, len(names)
     ids = eng.task_ids.long()
     goal_idx = loop_goal_rows(eng)
     agent = evaluation.ScriptedAgent(eng)
     state, obs = eng.reset(goal_idx=goal_idx)
-    eng.step(state, agent.eval_action(obs))  # warm-up: fills the per-device caches
     torch.cuda.synchronize()
     success = torch.zeros(n, device=dev)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     cuda_step.reset_counts()
     t0 = time.time()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         for _ in range(LOOP_STEPS):
             act = agent.eval_action(obs)
             state, out = eng.step(state, act)
             obs = out["obs"]
             success = torch.maximum(success, out["success"])
             finite = finite & torch.isfinite(act).all() & torch.isfinite(obs).all()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     wall = time.time() - t0
     total = cuda_step.launches
@@ -1014,11 +988,8 @@ def count_syncs(fn):
     warnings of torch.cuda.set_sync_debug_mode("warn")."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+        with no_host_sync(mode="warn"):
             result = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
     return result, sum("synchroniz" in str(w.message) for w in caught)
 
 
@@ -1031,7 +1002,7 @@ def run_evaluation(dev, card, slot_mean, mt50_records):
 
     t_phase = time.time()
     names = task_names("mt50")
-    eng = Counted(bench_engine(dev, N_ENVS, "mt50", seed=LOOP_SEED,
+    eng = Counted(build_envs(dev, N_ENVS, "mt50", seed=LOOP_SEED,
                                task_select="pseudorandom",
                                terminate_on_success=True, autoreset=True))
     vstate, _ = eng.reset(goal_idx=loop_goal_rows(eng))
@@ -1104,7 +1075,7 @@ def run_metalearning(dev, card, gen, errs):
 
     t_phase = time.time()
     envs = mw.make_ml_envs_test("ML45", seed=0, meta_batch_size=ML45_META_BATCH,
-                                device=dev)
+                                max_episode_steps=META_EPISODE_STEPS, device=dev)
     eng = Counted(envs, hidden=True)
     agent = ScriptedMetaAgent(envs)
     torch.cuda.synchronize()
@@ -1167,24 +1138,19 @@ def run_pipeline(dev, card, gen):
     acts = [torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
             for _ in range(PIPE_STEPS)]
     state, obs = pipe.reset(seed=0)
-    pipe.step(state, acts[0])  # warm-up: fills the per-device caches
-    state, obs = pipe.reset(seed=0)
     if tuple(obs.shape) != (n, 55):
         fail(f"pipeline: obs shape {tuple(obs.shape)}")
     finite = torch.isfinite(obs).all()
 
     def run(state, steps, outs=None):
         nonlocal finite
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with no_host_sync():
             for t in steps:
                 state, out = pipe.step(state, acts[t])
                 finite = finite & torch.isfinite(out["obs"]).all() & torch.isfinite(
                     out["reward"]).all()
                 if outs is not None:
                     outs.append((out["obs"], out["reward"], out["done"]))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         return state
 
     torch.cuda.synchronize()
@@ -1216,14 +1182,11 @@ def run_pipeline(dev, card, gen):
     pipe_e = wrappers.EnvPipeline(pipe.envs, reward_normalization_method="exponential", **kw)
     state_e, _ = pipe_e.reset(seed=1)
     cuda_step.reset_counts()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         for t in range(PIPE_EXP_STEPS):
             state_e, out_e = pipe_e.step(state_e, acts[t])
             finite = finite & torch.isfinite(out_e["obs"]).all() & torch.isfinite(
                 out_e["reward"]).all()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     exp_launches = cuda_step.launches
 
@@ -1426,7 +1389,7 @@ def run_facade(dev, card):
 def run_autograd(dev, card):
     """Phase 18: backprop through the plain physics on the card: a gradient
     against central differences, finite jacobians, the kernel refusing
-    grad, and two APG updates (H = 20, then H = 10)."""
+    grad, and two APG updates (H = 10, then H = 5)."""
     from metaworld_tpu_torch import benchmarks, train_apg, vector
     from metaworld_tpu_torch.envs import core, registry
     from metaworld_tpu_torch.physics import cuda_step
@@ -1618,7 +1581,7 @@ def run_v1(dev, card, gen):
 
     t_phase = time.time()
     names = task_names("mt50")
-    eng = bench_engine(dev, N_ENVS, "mt50", max_episode_steps=MAX_EPISODE_STEPS,
+    eng = build_envs(dev, N_ENVS, "mt50", max_episode_steps=MAX_EPISODE_STEPS,
                        reward_function_version="v1")
     if [s.reward_fn for s in eng.specs] != [V1_REWARDS[n] for n in names]:
         fail("v1: the engine's specs do not carry the v1 reward functions")
@@ -1749,19 +1712,14 @@ def run_sharded(dev, card, gen):
         acts = [torch.rand(n, 4, generator=gen, device=envs.devices[0]) * 2 - 1
                 for _ in range(SHARD_STEPS)]
         states, _ = envs.reset(seed=20)
-        envs.step(states, acts[0])  # warm-up: the per-device caches
-        states, _ = envs.reset(seed=20)
         torch.cuda.synchronize()
         outs_all = []
         cuda_step.reset_counts()
         t0 = time.time()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with no_host_sync():
             for a in acts:
                 states, outs = envs.step(states, a)
                 outs_all.append(envs.gather(outs, keys=vector.OUT_KEYS))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = list(cuda_step.launches_by_variant)
@@ -1872,8 +1830,6 @@ def run_offline(dev, card, gen):
         path = f"{tmp}/mt10.ts"
         with TrajectoryWriter(path) as w:
             keep = KeepWriter(w)
-            state, obs = envs.reset(seed=0)  # warm-up: the per-device caches
-            envs.step(state, agent.eval_action(obs))
             torch.cuda.synchronize()
             cuda_step.reset_counts()
             t0 = time.time()
@@ -1921,11 +1877,8 @@ def run_offline(dev, card, gen):
     losses = [float(x) for x in bc["losses"]]
     cuda_step.reset_counts()
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         again = train_bc.evaluate(bc["policy"], bc["envs"], args.seed + 100)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     eval_launches = list(cuda_step.launches_by_variant)
     print(f"[bc] {card}: train_bc on {args.env}, {bc['envs'].num_envs} envs, "
           f"{args.epochs} epochs: loss first epoch {losses[0]:.5f}, last "
@@ -1962,14 +1915,11 @@ def ppo_update(model, opt, sched, envs, vstate, obs, pgen, args, tag):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     cuda_step.reset_counts()
     ev[0].record()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         vstate, obs, traj, last = train_ppo.rollout(model, envs, vstate, obs,
                                                     args.rollout, pgen)
         adv, ret = train_ppo.gae(traj["reward"], traj["value"], traj["done"],
                                  last, args.gamma, args.lam)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     ev[1].record()
     launches = list(cuda_step.launches_by_variant)
     if cuda_step.launches != args.rollout:
@@ -2098,15 +2048,11 @@ def run_parity(dev, card, gen):
     envs = tp.replay_engine(names, traces, dev)
     actions = torch.from_numpy(np.stack([d["action"] for d in traces], 1)
                                .astype(np.float32)).to(dev)
-    tp.replay(envs, actions[:2])  # warm-up: the per-device caches
     torch.cuda.synchronize()
     cuda_step.reset_counts()
     t0 = time.time()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         replayed = tp.replay(envs, actions)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = list(cuda_step.launches_by_variant)
@@ -2213,13 +2159,48 @@ def run_tools(dev, card, gen):
     return records
 
 
+def run_bench(dev, card, gen):
+    """Phase 25: `python -m metaworld_tpu_torch.bench`'s rounds on a fresh
+    MT10 engine at N = 131072: the per-device caches emptied, the engine
+    built by `bench.build_envs`, one warm-up and BENCH_ROUNDS timed rounds
+    of BENCH_STEPS steps through `bench.run`, whose every step, the first
+    one included, runs under set_sync_debug_mode("error"). Then the kernel
+    against its plain version on that engine, and its `kernels` records
+    with the rounds' launches."""
+    from metaworld_tpu_torch import bench, benchmarks
+    from metaworld_tpu_torch.envs import registry
+    from metaworld_tpu_torch.physics import cuda_step, engine_lanes
+
+    t_phase = time.time()
+    engine_lanes._REACH_CACHE.clear()
+    for name in benchmarks.MT10_LIST:
+        registry.get_spec(name)._cache.clear()
+    envs = bench.build_envs(dev, N_ENVS)
+    out = bench.run(envs, "mt10", BENCH_STEPS, BENCH_ROUNDS, seed=25)
+    total, launches = cuda_step.launches, list(cuda_step.launches_by_variant)
+    print(f"[bench] {card}: {json.dumps(out)}; launches {total}, running each "
+          f"variant {launches}")
+    steps = BENCH_STEPS * (BENCH_ROUNDS + 1)
+    if (list(out) != ["metric", "value", "unit", "vs_baseline"]
+            or out["metric"] != f"env_steps_per_s_mt10_b{N_ENVS}"
+            or out["unit"] != "steps/s" or not out["value"] > 0
+            or out["vs_baseline"] != round(out["value"] / 1e6, 3)):
+        fail(f"bench: result line {out}")
+    if total != steps or launches != [steps] * 4:
+        fail(f"bench: launches {total} {launches}: expected one per step, "
+             f"each running blocks of every variant")
+    records = held_records(envs, dev, gen, "mt10 bench", launches, card, "mt10")
+    print(f"[bench] phase {time.time() - t_phase:.1f} s")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     from metaworld_tpu_torch.physics import _build, cuda_step
 
     dev = torch.device("cuda")
-    card = card_line()
+    card = devices.card()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {kind}", flush=True)
@@ -2234,7 +2215,7 @@ def main():
             print(f"[ptxas] {line.strip()}")
 
     # ---- 3. kernel vs plain at full width (MT10) ----
-    eng = bench_engine(dev, N_ENVS, max_episode_steps=MAX_EPISODE_STEPS)
+    eng = build_envs(dev, N_ENVS, max_episode_steps=MAX_EPISODE_STEPS)
     blocks, runs = eng.block_table, eng.variant_runs
     info = cuda_step.kernel_info()
     print(f"[kernel] {card}: {info['regs']} registers and {info['local_bytes']} B "
@@ -2354,6 +2335,10 @@ def main():
     kernels += run_ppo(dev, card, gen)
     kernels += run_parity(dev, card, gen)
     kernels += run_tools(dev, card, gen)
+
+    # ---- 25. the throughput entry point on a fresh engine ----
+    gen.manual_seed(25)
+    kernels += run_bench(dev, card, gen)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from metaworld_tpu_torch.devices import device_key
 from metaworld_tpu_torch.physics import cuda_step, engine, maths
 from metaworld_tpu_torch.rewards import utils as reward_utils
 from metaworld_tpu_torch.types import (
@@ -103,7 +104,7 @@ class TaskSpec:
         """The spec's constants on `device`, made on the first call: as
         normal tensors even under inference mode, so that a later autograd
         pass may save them."""
-        key = str(torch.device(device))
+        key = device_key(device)
         if key not in self._cache:
             with torch.inference_mode(False):
                 self._cache[key] = self._make_consts(device)
@@ -228,7 +229,7 @@ def step_tables(spec: TaskSpec, device, n: int):
     """(scene table, task ids, block table) of n slots of one task on
     `device`, made once per (spec, device, n): the kernel's one launch per
     step then reads nothing on the host."""
-    key = ("step", str(torch.device(device)), int(n))
+    key = ("step", device_key(device), int(n))
     if key not in spec._cache:
         with torch.inference_mode(False):  # normal tensors (see consts)
             table = cuda_step.build_scene_table([spec.scene], device)

@@ -34,8 +34,10 @@ import subprocess
 
 import torch
 
+from metaworld_tpu_torch import devices
+from metaworld_tpu_torch.bench import build_envs
+from metaworld_tpu_torch.devices import time_ms
 from metaworld_tpu_torch.physics import _build, cuda_step
-from metaworld_tpu_torch.profile_step import _card, _time_ms, bench_engine
 
 
 def _sass_counts(lib) -> dict:
@@ -63,7 +65,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
-    card = _card()
+    card = devices.card()
 
     builds = {f"B={b}": ([*_build.NVCC_FLAGS, f"-DMW_MIN_BLOCKS={b}"], _build.CSRC)
               for b in args.min_blocks.split(",") if b}
@@ -85,7 +87,7 @@ def main():
         logs.update((name, job.result()) for name, job in jobs.items())
     libs = {name: cuda_step.bind(ctypes.CDLL(str(p))) for name, p in paths.items()}
 
-    eng = bench_engine(dev, args.envs)
+    eng = build_envs(dev, args.envs)
     table, ids, blocks = eng.scene_table, eng.task_ids, eng.block_table
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -107,7 +109,7 @@ def main():
     turns = {name: [] for name in libs}
     for _ in range(args.rounds):
         for name in list(libs) + list(libs)[::-1]:
-            turns[name].append(_time_ms(lambda: cuda_step.launch_rows(
+            turns[name].append(time_ms(lambda: cuda_step.launch_rows(
                 table.rows, ids, rows, ctl, blocks, lib=libs[name]), args.reps))
     ms = {name: statistics.median(t) for name, t in turns.items()}
 

@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from metaworld_tpu_torch.devices import device_key
 from metaworld_tpu_torch.physics import engine
 from metaworld_tpu_torch.physics.engine import (
     _F_DAMP,
@@ -313,7 +314,7 @@ def _reach_tables(device):
     """(lo, hi, n-1, flat grid) on `device`, copied there once (as normal
     tensors even when the first caller runs under inference mode, so that
     later autograd may save them)."""
-    key = str(device)
+    key = device_key(device)
     if key not in _REACH_CACHE:
         with torch.inference_mode(False):
             _REACH_CACHE[key] = tuple(

@@ -3,8 +3,8 @@
     python -m metaworld_tpu_torch.profile_step [--tasks mt10|mt25|mt50]
         [--envs 131072] [--reps 20]
 
-Builds the engine as bench.py lays out MT10 (one-hot ids, counts split
-evenly over the tasks of the task set, MT10 by default), then times each layer of
+Builds the engine with `bench.build_envs` (bench.py's layout of the task
+set, MT10 by default), then times each layer of
 `vector.FusedBatchedEnvs.step` with CUDA events on the same inputs: the
 weld target, state packing, the physics kernel, unpacking, the non-finite
 guard, the per-task observation/reward tails and NEXT_STEP autoreset, and
@@ -18,55 +18,16 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
 
-from metaworld_tpu_torch import benchmarks, vector
-from metaworld_tpu_torch.envs import registry
+from metaworld_tpu_torch import devices
+from metaworld_tpu_torch.bench import TASK_SETS, build_envs
+from metaworld_tpu_torch.devices import time_ms
 from metaworld_tpu_torch.envs.core import keep_stable, post_step, select_slots
 from metaworld_tpu_torch.physics import cuda_step
 from metaworld_tpu_torch.types import tree_map
-
-
-def _card() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "unknown"
-
-
-def _time_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-TASK_SETS = {"mt10": benchmarks.MT10, "mt25": benchmarks.MT25,
-             "mt50": benchmarks.MT50}
-
-
-def bench_engine(dev, n_envs, tasks="mt10", seed=0,
-                 reward_function_version="v2", **kw) -> vector.FusedBatchedEnvs:
-    """A task set as bench.py lays out MT10: one-hot ids, `n_envs` slots
-    split evenly over its tasks (the remainder to the first), goal tables
-    of the benchmark made with `seed`, the tasks' specs of the reward
-    family `reward_function_version`; `kw` goes to FusedBatchedEnvs."""
-    bench = TASK_SETS[tasks](seed=seed)
-    names = list(bench.train_classes.keys())
-    base, rem = divmod(n_envs, len(names))
-    counts = [base + (1 if i < rem else 0) for i in range(len(names))]
-    return vector.FusedBatchedEnvs(
-        [registry.get_spec(n, reward_function_version) for n in names], counts,
-        [bench.goal_table(n) for n in names], goal_visible=True, one_hot=True,
-        device=dev, **kw)
 
 
 def main():
@@ -78,9 +39,9 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
-    card = _card()
+    card = devices.card()
 
-    eng = bench_engine(dev, args.envs, args.tasks)
+    eng = build_envs(dev, args.envs, args.tasks)
     state, _ = eng.reset()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -124,7 +85,7 @@ def main():
         "autoreset": autoreset,
         "step": lambda: eng.step(state, act),
     }
-    ms = {k: _time_ms(f, args.reps) for k, f in layers.items()}
+    ms = {k: time_ms(f, args.reps) for k, f in layers.items()}
     for k, v in ms.items():
         print(f"[layer] {card}: {args.tasks} {k} {v:.4f} ms")
 

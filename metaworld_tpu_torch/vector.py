@@ -111,7 +111,8 @@ class FusedBatchedEnvs:
         self._offsets = np.cumsum([0] + self.counts)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(seed)
-        self._n_goals = [int(np.asarray(t).shape[0]) for t in goal_tables]
+        self.goal_tables = [np.asarray(t) for t in goal_tables]
+        self._n_goals = [int(t.shape[0]) for t in self.goal_tables]
         # sample_tasks' host RNG and per-group cursors (JAX vector.py:97-99)
         self._prg_rng = np.random.default_rng(0)
         self._prg_perm = [None] * len(self.specs)
