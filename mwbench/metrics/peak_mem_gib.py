@@ -1,0 +1,6 @@
+"""torch.cuda.max_memory_allocated() over set-up and window, after the
+peak was reset at process start, in GiB."""
+
+
+def read(ctx):
+    return ctx.memory_peak_bytes / 2**30 if ctx.memory_peak_bytes else None
