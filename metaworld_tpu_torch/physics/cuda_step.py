@@ -32,6 +32,7 @@ import torch
 
 from metaworld_tpu_torch.physics import engine_lanes
 from metaworld_tpu_torch.physics.engine_lanes import _NS
+from metaworld_tpu_torch.tracing import span
 from metaworld_tpu_torch.types import (
     MAX_JOINT, MAX_OBJ, MAX_STATIC, SceneParams, SimState)
 
@@ -353,7 +354,8 @@ def _load():
     if _lib is None:
         from metaworld_tpu_torch.physics import _build
 
-        _lib = bind(ctypes.CDLL(str(_build.build_cuda())))
+        with span("physics.load"):
+            _lib = bind(ctypes.CDLL(str(_build.build_cuda())))
     return _lib
 
 
@@ -443,10 +445,11 @@ def plain_control_step(table: SceneTable, task_ids, sim: SimState,
                        action) -> SimState:
     """The kernel's plain PyTorch version: the same control step through
     engine_lanes on scene lanes gathered from the table (all features on)."""
-    mocap, target, effort = _sim_and_ctl(table, task_ids, sim, action)
-    rows = table.rows[task_ids.long()].T
-    sc = _NS(**_build_lanes(rows, SC_SPEC))
-    return engine_lanes.run_substeps(sc, sim, target, effort, mocap)
+    with span("physics.plain"):
+        mocap, target, effort = _sim_and_ctl(table, task_ids, sim, action)
+        rows = table.rows[task_ids.long()].T
+        sc = _NS(**_build_lanes(rows, SC_SPEC))
+        return engine_lanes.run_substeps(sc, sim, target, effort, mocap)
 
 
 def control_step(table: SceneTable, task_ids, sim: SimState, action,
@@ -463,7 +466,12 @@ def control_step(table: SceneTable, task_ids, sim: SimState, action,
         blocks = block_table(task_ids.cpu().numpy(),
                              np.ones((table.rows.shape[0], 3), bool),
                              device=task_ids.device)
-    mocap, target, effort = _sim_and_ctl(table, task_ids, sim, action)
-    ctl = torch.cat([target.T, effort[None]], dim=0).contiguous()
-    out = launch_rows(table.rows, task_ids, pack_sim_rows(sim), ctl, blocks)
-    return unpack_sim_rows(out, mocap)
+    with span("physics.weld"):
+        mocap, target, effort = _sim_and_ctl(table, task_ids, sim, action)
+    with span("physics.pack"):
+        ctl = torch.cat([target.T, effort[None]], dim=0).contiguous()
+        rows = pack_sim_rows(sim)
+    with span("physics.launch"):
+        out = launch_rows(table.rows, task_ids, rows, ctl, blocks)
+    with span("physics.unpack"):
+        return unpack_sim_rows(out, mocap)

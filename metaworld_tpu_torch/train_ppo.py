@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from metaworld_tpu_torch import benchmarks, vector, wrappers
+from metaworld_tpu_torch.tracing import span
 from metaworld_tpu_torch.train_apg import dense
 
 _LOG_2PI = math.log(2 * math.pi)
@@ -85,31 +86,34 @@ def rollout(model, envs, vstate, obs, steps: int, gen):
     reward, done, success."""
     keys = ("obs", "act", "logp", "value", "reward", "done", "success")
     traj = {k: [] for k in keys}
-    for _ in range(steps):
-        act, logp, value = policy_sample(model, obs, gen)
-        vstate, out = envs.step(vstate, act)
-        done = (out["terminated"] | out["truncated"]).to(torch.float32)
-        for k, v in zip(keys, (obs, act, logp, value, out["reward"], done,
-                               out["success"])):
-            traj[k].append(v)
-        obs = out["obs"]
-    _, _, last_value = model(obs)
-    return vstate, obs, {k: torch.stack(v) for k, v in traj.items()}, last_value
+    with span("ppo.rollout"):
+        for _ in range(steps):
+            with span("ppo.policy"):
+                act, logp, value = policy_sample(model, obs, gen)
+            vstate, out = envs.step(vstate, act)
+            done = (out["terminated"] | out["truncated"]).to(torch.float32)
+            for k, v in zip(keys, (obs, act, logp, value, out["reward"], done,
+                                   out["success"])):
+                traj[k].append(v)
+            obs = out["obs"]
+        _, _, last_value = model(obs)
+        return vstate, obs, {k: torch.stack(v) for k, v in traj.items()}, last_value
 
 
 def gae(rewards, values, dones, last_value, gamma: float, lam: float):
     """Generalised advantage estimates over (T, n) rewards, values and
     dones; returns (advantages, returns)."""
-    advs = [None] * rewards.shape[0]
-    adv = torch.zeros_like(last_value)
-    next_value = last_value
-    for t in reversed(range(rewards.shape[0])):
-        delta = rewards[t] + gamma * next_value * (1 - dones[t]) - values[t]
-        adv = delta + gamma * lam * (1 - dones[t]) * adv
-        advs[t] = adv
-        next_value = values[t]
-    advs = torch.stack(advs)
-    return advs, advs + values
+    with span("ppo.gae"):
+        advs = [None] * rewards.shape[0]
+        adv = torch.zeros_like(last_value)
+        next_value = last_value
+        for t in reversed(range(rewards.shape[0])):
+            delta = rewards[t] + gamma * next_value * (1 - dones[t]) - values[t]
+            adv = delta + gamma * lam * (1 - dones[t]) * adv
+            advs[t] = adv
+            next_value = values[t]
+        advs = torch.stack(advs)
+        return advs, advs + values
 
 
 def ppo_loss(model, batch, clip: float):
@@ -156,18 +160,20 @@ def learn(model, opt, sched, traj, adv, ret, epochs: int, minibatches: int,
     """`epochs` passes over the flattened trajectory, each in `minibatches`
     minibatches of a fresh permutation drawn from `gen`. Returns the mean
     loss (a tensor)."""
-    flat = [x.reshape((-1,) + x.shape[2:])
-            for x in (traj["obs"], traj["act"], traj["logp"], adv, ret)]
-    n = flat[0].shape[0]
-    losses = []
-    for _ in range(epochs):
-        perm = torch.randperm(n, generator=gen, device=flat[0].device)
-        mbs = [x[perm].reshape((minibatches, -1) + x.shape[1:]) for x in flat]
-        for i in range(minibatches):
-            loss = ppo_loss(model, [x[i] for x in mbs], clip)
-            optimizer_step(model, opt, sched, loss)
-            losses.append(loss.detach())
-    return torch.stack(losses).mean()
+    with span("ppo.learn"):
+        flat = [x.reshape((-1,) + x.shape[2:])
+                for x in (traj["obs"], traj["act"], traj["logp"], adv, ret)]
+        n = flat[0].shape[0]
+        losses = []
+        for _ in range(epochs):
+            perm = torch.randperm(n, generator=gen, device=flat[0].device)
+            mbs = [x[perm].reshape((minibatches, -1) + x.shape[1:]) for x in flat]
+            for i in range(minibatches):
+                with span("ppo.minibatch"):
+                    loss = ppo_loss(model, [x[i] for x in mbs], clip)
+                    optimizer_step(model, opt, sched, loss)
+                losses.append(loss.detach())
+        return torch.stack(losses).mean()
 
 
 def update(model, opt, sched, envs, vstate, obs, gen, args):

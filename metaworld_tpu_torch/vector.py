@@ -37,6 +37,7 @@ from metaworld_tpu_torch.envs import registry
 from metaworld_tpu_torch.envs.core import (
     TaskSpec, env_reset, keep_stable, post_step, select_slots)
 from metaworld_tpu_torch.physics import cuda_step, engine_lanes
+from metaworld_tpu_torch.tracing import span
 from metaworld_tpu_torch.types import (
     MAX_PATH_LENGTH, EnvState, _Tree, tree_map)
 
@@ -89,78 +90,82 @@ class FusedBatchedEnvs:
         device="cuda",
         seed: int = 0,
     ):
-        assert len(specs) == len(counts) == len(goal_tables)
-        assert task_select in ("random", "pseudorandom")
-        assert physics in ("auto", "torch", "cuda")
-        self.device = dev = torch.device(device)
-        if physics == "auto":
-            physics = "cuda" if dev.type == "cuda" else "torch"
-        if physics == "cuda" and dev.type != "cuda":
-            raise ValueError("physics='cuda' needs a CUDA device")
-        self.physics = physics
-        self.specs = list(specs)
-        self.counts = [int(c) for c in counts]
-        self.num_envs = int(sum(self.counts))
-        if isinstance(goal_visible, bool):
-            goal_visible = [goal_visible] * len(specs)
-        self.goal_visible = [float(v) for v in goal_visible]
-        self.terminate_on_success = bool(terminate_on_success)
-        self.max_episode_steps = int(max_episode_steps)
-        self.autoreset = bool(autoreset)
-        self.task_select = task_select
-        self._offsets = np.cumsum([0] + self.counts)
-        self._gen = torch.Generator(device=dev)
-        self._gen.manual_seed(seed)
-        self.goal_tables = [np.asarray(t) for t in goal_tables]
-        self._n_goals = [int(t.shape[0]) for t in self.goal_tables]
-        # sample_tasks' host RNG and per-group cursors (JAX vector.py:97-99)
-        self._prg_rng = np.random.default_rng(0)
-        self._prg_perm = [None] * len(self.specs)
-        self._prg_cursor = [None] * len(self.specs)
+        with span("engine.build"):
+            assert len(specs) == len(counts) == len(goal_tables)
+            assert task_select in ("random", "pseudorandom")
+            assert physics in ("auto", "torch", "cuda")
+            self.device = dev = torch.device(device)
+            if physics == "auto":
+                physics = "cuda" if dev.type == "cuda" else "torch"
+            if physics == "cuda" and dev.type != "cuda":
+                raise ValueError("physics='cuda' needs a CUDA device")
+            self.physics = physics
+            self.specs = list(specs)
+            self.counts = [int(c) for c in counts]
+            self.num_envs = int(sum(self.counts))
+            if isinstance(goal_visible, bool):
+                goal_visible = [goal_visible] * len(specs)
+            self.goal_visible = [float(v) for v in goal_visible]
+            self.terminate_on_success = bool(terminate_on_success)
+            self.max_episode_steps = int(max_episode_steps)
+            self.autoreset = bool(autoreset)
+            self.task_select = task_select
+            self._offsets = np.cumsum([0] + self.counts)
+            self._gen = torch.Generator(device=dev)
+            self._gen.manual_seed(seed)
+            self.goal_tables = [np.asarray(t) for t in goal_tables]
+            self._n_goals = [int(t.shape[0]) for t in self.goal_tables]
+            # sample_tasks' host RNG and per-group cursors (JAX vector.py:97-99)
+            self._prg_rng = np.random.default_rng(0)
+            self._prg_perm = [None] * len(self.specs)
+            self._prg_cursor = [None] * len(self.specs)
 
-        slot_task = np.repeat(np.arange(len(specs)), self.counts)
-        self.task_ids = torch.from_numpy(slot_task.astype(np.int32)).to(dev)
+            slot_task = np.repeat(np.arange(len(specs)), self.counts)
+            self.task_ids = torch.from_numpy(slot_task.astype(np.int32)).to(dev)
 
-        # one-hot task id block
-        self.one_hot = one_hot
-        if one_hot:
-            n = num_tasks if num_tasks is not None else len(specs)
-            idx = np.asarray(task_indices if task_indices is not None
-                             else range(len(specs)), dtype=np.int64)
-            oh = np.zeros((self.num_envs, n), dtype=np.float32)
-            oh[np.arange(self.num_envs), idx[slot_task]] = 1.0
-            self._one_hot_block = torch.from_numpy(oh).to(dev)
-            self.obs_dim = 39 + n
-        else:
-            self._one_hot_block = None
-            self.obs_dim = 39
+            # one-hot task id block
+            self.one_hot = one_hot
+            if one_hot:
+                n = num_tasks if num_tasks is not None else len(specs)
+                idx = np.asarray(task_indices if task_indices is not None
+                                 else range(len(specs)), dtype=np.int64)
+                oh = np.zeros((self.num_envs, n), dtype=np.float32)
+                oh[np.arange(self.num_envs), idx[slot_task]] = 1.0
+                self._one_hot_block = torch.from_numpy(oh).to(dev)
+                self.obs_dim = 39 + n
+            else:
+                self._one_hot_block = None
+                self.obs_dim = 39
 
-        # physics: per-task scene table, the same-variant runs of blocks and
-        # the block table of the kernel's one launch per step
-        self.scene_table = cuda_step.build_scene_table(
-            [s.scene for s in self.specs], dev)
-        self.variant_runs = cuda_step.variant_runs(
-            cuda_step.block_variants(self.scene_table.features[slot_task]),
-            self.num_envs)
-        self.block_table = cuda_step.block_table(
-            slot_task, self.scene_table.features, device=dev)
-        engine_lanes._reach_tables(dev)
+            # physics: per-task scene table, the same-variant runs of blocks and
+            # the block table of the kernel's one launch per step
+            with span("engine.scene_table"):
+                self.scene_table = cuda_step.build_scene_table(
+                    [s.scene for s in self.specs], dev)
+            self.variant_runs = cuda_step.variant_runs(
+                cuda_step.block_variants(self.scene_table.features[slot_task]),
+                self.num_envs)
+            with span("engine.block_table"):
+                self.block_table = cuda_step.block_table(
+                    slot_task, self.scene_table.features, device=dev)
+            engine_lanes._reach_tables(dev)
 
-        # reset table: one reset state + observation per (task, goal row)
-        n_goals = self._n_goals
-        goal_off = np.cumsum([0] + n_goals)[:-1]
-        envs, obss = [], []
-        for i, spec in enumerate(self.specs):
-            table = torch.from_numpy(
-                np.asarray(goal_tables[i], dtype=np.float32)).to(dev)
-            st, obs = env_reset(spec, table, self.goal_visible[i], self._gen)
-            envs.append(st)
-            obss.append(obs)
-        self._reset_env = tree_map(lambda *xs: torch.cat(xs), *envs)
-        self._reset_obs = torch.cat(obss)
-        self._slot_goal_off = torch.from_numpy(goal_off[slot_task]).to(dev)
-        self._slot_goal_n = torch.from_numpy(
-            np.asarray(n_goals)[slot_task].astype(np.float32)).to(dev)
+            # reset table: one reset state + observation per (task, goal row)
+            with span("engine.reset_table"):
+                n_goals = self._n_goals
+                goal_off = np.cumsum([0] + n_goals)[:-1]
+                envs, obss = [], []
+                for i, spec in enumerate(self.specs):
+                    table = torch.from_numpy(
+                        np.asarray(goal_tables[i], dtype=np.float32)).to(dev)
+                    st, obs = env_reset(spec, table, self.goal_visible[i], self._gen)
+                    envs.append(st)
+                    obss.append(obs)
+                self._reset_env = tree_map(lambda *xs: torch.cat(xs), *envs)
+                self._reset_obs = torch.cat(obss)
+                self._slot_goal_off = torch.from_numpy(goal_off[slot_task]).to(dev)
+                self._slot_goal_n = torch.from_numpy(
+                    np.asarray(n_goals)[slot_task].astype(np.float32)).to(dev)
 
     @property
     def task_names(self) -> list[str]:
@@ -249,27 +254,34 @@ class FusedBatchedEnvs:
     def step(self, state: FusedState, actions):
         """One step of every slot. Returns (new_state, outputs) with the 14
         output keys of the JAX engine."""
+        with span("step"):
+            return self._step(state, actions)
+
+    def _step(self, state, actions):
         env = state.env
-        if self.physics == "cuda":
-            sim = cuda_step.control_step(self.scene_table, self.task_ids,
-                                         env.sim, actions, self.block_table)
-        else:
-            sim = cuda_step.plain_control_step(self.scene_table, self.task_ids,
-                                               env.sim, actions)
+        with span("step.physics"):
+            if self.physics == "cuda":
+                sim = cuda_step.control_step(self.scene_table, self.task_ids,
+                                             env.sim, actions, self.block_table)
+            else:
+                sim = cuda_step.plain_control_step(self.scene_table, self.task_ids,
+                                                   env.sim, actions)
         # non-finite guard: unstable slots keep their last stable sim state
-        sim, stable = keep_stable(sim, env.sim)
+        with span("step.guard"):
+            sim, stable = keep_stable(sim, env.sim)
         env = env.replace(sim=sim, path_length=env.path_length + 1)
 
         # per-task observation / reward tails
-        prev, outs = [], []
-        for i, spec in enumerate(self.specs):
-            a, b = int(self._offsets[i]), int(self._offsets[i + 1])
-            st_i = tree_map(lambda x: x[a:b], env)
-            st2, out = post_step(spec, st_i, actions[a:b])
-            prev.append(st2.prev_obs)
-            outs.append(out)
-        env = env.replace(prev_obs=torch.cat(prev))
-        out = tree_map(lambda *xs: torch.cat(xs), *outs)
+        with span("step.tails"):
+            prev, outs = [], []
+            for i, spec in enumerate(self.specs):
+                a, b = int(self._offsets[i]), int(self._offsets[i + 1])
+                st_i = tree_map(lambda x: x[a:b], env)
+                st2, out = post_step(spec, st_i, actions[a:b])
+                prev.append(st2.prev_obs)
+                outs.append(out)
+            env = env.replace(prev_obs=torch.cat(prev))
+            out = tree_map(lambda *xs: torch.cat(xs), *outs)
         reward = torch.where(stable, out.reward, 0.0)
         unscaled = torch.where(stable, out.unscaled_reward, 0.0)
         metrics = {k: getattr(out, k) for k in _METRICS}
@@ -285,14 +297,15 @@ class FusedBatchedEnvs:
         pending = state.pending_reset
         obs = out.obs
         if self.autoreset:
-            terminated = terminated & ~pending
-            truncated = truncated & ~pending
-            rows = self._reset_rows(state.goal_idx)
-            env = select_slots(pending,
-                               tree_map(lambda t: t[rows], self._reset_env), env)
-            obs = torch.where(pending[:, None], self._reset_obs[rows], obs)
-            reward = torch.where(pending, 0.0, reward)
-            metrics = {k: torch.where(pending, 0.0, v) for k, v in metrics.items()}
+            with span("step.autoreset"):
+                terminated = terminated & ~pending
+                truncated = truncated & ~pending
+                rows = self._reset_rows(state.goal_idx)
+                env = select_slots(pending,
+                                   tree_map(lambda t: t[rows], self._reset_env), env)
+                obs = torch.where(pending[:, None], self._reset_obs[rows], obs)
+                reward = torch.where(pending, 0.0, reward)
+                metrics = {k: torch.where(pending, 0.0, v) for k, v in metrics.items()}
 
         done = terminated | truncated
         ep_ret = torch.where(pending, 0.0, state.episode_return) + reward

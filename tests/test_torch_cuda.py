@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from metaworld_tpu_torch import benchmarks, vector
+from metaworld_tpu_torch import benchmarks, tracing, vector
 from metaworld_tpu_torch.physics import cuda_step
 
 pytestmark = pytest.mark.cuda
@@ -111,6 +111,52 @@ def test_fused_step_kernel_matches_plain_physics_without_sync(device):
                                        op[k].double().cpu().numpy(),
                                        rtol=1e-5, atol=1e-5, err_msg=k)
     assert bool(torch.stack([o["done"] for o in outs_k]).any(0).all())
+
+
+def test_fused_step_with_the_tracer_on_makes_no_sync_and_one_launch(device):
+    """The same steps with the tracer off and on, under
+    `set_sync_debug_mode("error")`: the same outputs to the bit, one kernel
+    launch a step, and the kernel's spans inside `step.physics`."""
+    eng = _engine(device, 6, max_episode_steps=4, task_select="pseudorandom")
+    goal_idx = torch.arange(eng.num_envs, device=device, dtype=torch.int32) % 5
+    s0, _ = eng.reset(goal_idx=goal_idx)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    acts = [torch.rand(eng.num_envs, 4, generator=gen, device=device) * 2 - 1
+            for _ in range(6)]
+    eng.step(s0, acts[0])
+    torch.cuda.synchronize()
+    runs = []
+    for on in (False, True):
+        cuda_step.reset_counts()
+        if on:
+            tracing.enable()
+        outs = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            s = s0
+            for a in acts:
+                s, o = eng.step(s, a)
+                outs.append(o)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            records, _ = tracing.take()
+        assert cuda_step.launches == len(acts)
+        runs.append((outs, records))
+    (off, none), (on, records) = runs
+    assert none == []
+    for o_off, o_on in zip(off, on):
+        for k in vector.OUT_KEYS:
+            assert torch.equal(o_off[k], o_on[k]), k
+    names = [r.name for r in records]
+    assert names.count("step") == len(acts)
+    assert names[:6] == ["step", "step.physics", "physics.weld", "physics.pack",
+                         "physics.launch", "physics.unpack"]
+    assert names[6:9] == ["step.guard", "step.tails", "step.autoreset"]
+    for r in records:
+        if r.name.startswith("physics."):
+            assert records[r.parent].name == "step.physics"
+            assert records[r.parent].start_ns <= r.start_ns <= r.end_ns
 
 
 def test_ml_test_split_kernel_matches_plain_physics_without_sync(device):
