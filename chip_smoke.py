@@ -564,8 +564,10 @@ def fused_small(dev, gen, path, n, **engine_kw):
     worst = {}
     for t in range(12):
         act = torch.rand(n, 4, generator=gen, device=dev) * 2 - 1
-        nk, ok = small_k.step(sk, act)
+        # the plain engine first: the kernel's engine overwrites the state
+        # its last step returned (vector.FusedBatchedEnvs.step)
         _, op = small_p.step(sk, act)
+        nk, ok = small_k.step(sk, act)
         for k in vector.OUT_KEYS:
             a, b = ok[k].double(), op[k].double()
             worst[k] = max(worst.get(k, 0.0), ((a - b).abs() / (1.0 + b.abs())).max().item())
@@ -1480,6 +1482,7 @@ def run_autograd(dev, card):
     fused = vector.from_benchmark(benchmarks.MT1("reach-v3", seed=0, num_goals=2),
                                   envs_per_task=2, device=dev)
     fstate, _ = fused.reset()
+    cuda_step.reset_counts()  # the constructor's eager step launched once
     refusals = []
     for what, fn in (("env_step", lambda: core.env_step(spec, st, act)),
                      ("fused step", lambda: fused.step(fstate, act.expand(2, 4)))):
@@ -1605,8 +1608,9 @@ def run_v1(dev, card, gen):
     mismatched, cpu_off, cpu_worst = 0, 0, 0.0
     for t in range(V1_TAIL_STEPS):
         act = acts[t]
+        prev_obs = state.env.prev_obs.clone()  # the step overwrites `state`
         new, out = eng.step(state, act)
-        env = new.env.replace(prev_obs=state.env.prev_obs)
+        env = new.env.replace(prev_obs=prev_obs)
         for i, spec in enumerate(eng.specs):
             a, b = int(offs[i]), int(offs[i + 1])
             _, ref = core.post_step(spec, tree_map(lambda x: x[a:b], env), act[a:b])
@@ -1891,7 +1895,8 @@ def run_offline(dev, card, gen):
         fail(f"bc: loss not finite or not lower at the last epoch ({losses[0]}, "
              f"{losses[-1]})")
     episode = train_bc.EPISODE_STEPS
-    if cuda_step.launches != episode or bc_launches != 2 * episode:
+    # record and evaluation, and the one eager step of the engine's constructor
+    if cuda_step.launches != episode or bc_launches != 2 * episode + 1:
         fail(f"bc: {cuda_step.launches} launches in the eval loop, {bc_launches} "
              f"in the run")
     if float(again) != bc["success_rate"]:
@@ -2113,7 +2118,8 @@ def run_tools(dev, card, gen):
               f"{cuda_step.launches}")
         if failed != expect:
             wrong[name] = (failed, expect)
-        if cuda_step.launches != 500:
+        # 500 steps and the one eager step of the engine's constructor
+        if cuda_step.launches != 501:
             fail(f"policy_testing {name}: {cuda_step.launches} launches for 500 steps")
         envs = vector.from_benchmark(benchmarks.MT1(name, seed=42),
                                      envs_per_task=PT_GOALS, autoreset=False,
@@ -2130,13 +2136,16 @@ def run_tools(dev, card, gen):
     print(f"[scaling_bench] {card}, one card (the shards repeat {dev}: mechanics "
           f"only): {rows}; launches {cuda_step.launches}")
     steps = int(SCALING_ARGS[SCALING_ARGS.index("--steps") + 1])
-    if cuda_step.launches != 2 * steps * sum(r["devices"] for r in rows):
+    # two passes of `steps` steps a shard, and one eager step in each
+    # shard's constructor
+    if cuda_step.launches != (2 * steps + 1) * sum(r["devices"] for r in rows):
         fail(f"scaling_bench: {cuda_step.launches} launches")
 
     cuda_step.reset_counts()
     mem = profile_memory.profile("MT10", PIPE_PER_TASK, dev)
     print(f"[profile_memory] {card}: {mem}; launches {cuda_step.launches}")
-    if cuda_step.launches != 1 or not mem["device_bytes_in_use"]:
+    # the step and the one eager step of the engine's constructor
+    if cuda_step.launches != 2 or not mem["device_bytes_in_use"]:
         fail(f"profile_memory: {cuda_step.launches} launches, {mem}")
 
     stdin = sys.stdin

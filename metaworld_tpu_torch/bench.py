@@ -20,7 +20,10 @@ the freshly built engine on; the physics kernel is launched once per step;
 every round's summed reward is finite.
 
 Earlier lines give the card's name and power limit, the layout, the round
-times and the summed reward; the last line is bench.py's JSON object,
+times, the summed reward and how the steps ran (`vector`'s counters: graph
+captures and replays, eager steps, state leaves copied in, and the share
+of the steps that replayed the engine's CUDA graph; on the card the engine
+captures its graph when it is built); the last line is bench.py's JSON object,
 against the 1M env-steps/s target of BASELINE.md. Runs on the card; with
 no CUDA device it exits non-zero unless `--device cpu` asks for the plain
 physics on the CPU, where there is no host sync or launch to count.
@@ -108,6 +111,7 @@ def run(envs, tasks="mt10", steps=STEPS, rounds=ROUNDS, seed=0) -> dict:
     gen.manual_seed(seed)
     if cuda:
         cuda_step.reset_counts()
+    vector.reset_counts()
     with no_host_sync(dev):
         first = _stamp(cuda)
         state, _ = envs.reset(seed=seed)
@@ -139,6 +143,9 @@ def run(envs, tasks="mt10", steps=STEPS, rounds=ROUNDS, seed=0) -> dict:
           f"{max(round_ms):.4f}; wall {wall:.4f} s")
     print(f"[bench] summed reward over the timed rounds {reward_sum!r}; by round "
           f"(warm-up first) {sums}; kernel launches {launches}")
+    print(f"[bench] steps: graph captures {vector.graph_captures}, graph replays "
+          f"{vector.graph_replays}, eager steps {vector.eager_steps}, state leaves "
+          f"copied in {vector.state_copy_ins}, hit share {vector.hit_share()}")
     if not all(np.isfinite(sums)):
         raise RuntimeError(f"bench: a round's summed reward is not finite: {sums}")
     if cuda and launches != steps * (rounds + 1):

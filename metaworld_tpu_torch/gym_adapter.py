@@ -443,7 +443,7 @@ class GymVectorBatch(gym.vector.VectorEnv if _HAS_GYM else object):
                 "task_select='random' envs")
             return [None] * self.num_envs
         if method == "toggle_terminate_on_success":
-            # the step reads the flag on every call
+            # on the card, a new value captures the engine's graph again
             engine.terminate_on_success = bool(args[0])
             return [None] * self.num_envs
         raise AttributeError(method)

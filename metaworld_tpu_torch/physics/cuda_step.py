@@ -332,7 +332,7 @@ def block_table(task_ids, task_features: np.ndarray, block: int = BLOCK,
 # the kernel library and the wrapper
 # ---------------------------------------------------------------------------
 
-launches = 0                       # kernel launches made by launch_rows
+launches = 0                       # kernel runs on the card (launch_rows)
 launches_by_variant = [0, 0, 0, 0]  # of those, the ones that ran the variant
 blocks_by_variant = [0, 0, 0, 0]    # blocks run per variant
 
@@ -380,6 +380,22 @@ def reset_counts():
         blocks_by_variant[v] = 0
 
 
+def count(blocks: list):
+    """Count one run of a launch over `blocks` blocks per variant."""
+    global launches
+    launches += 1
+    for v, c in enumerate(blocks):
+        launches_by_variant[v] += c > 0
+        blocks_by_variant[v] += c
+
+
+def refuse_grad():
+    raise RuntimeError(
+        "the physics kernel has no backward pass: to differentiate "
+        "through the physics, step with physics='torch' (the plain "
+        "PyTorch lane engine), or run the kernel under torch.no_grad()")
+
+
 def _check(t: torch.Tensor, name, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -397,14 +413,10 @@ def launch_rows(table_rows, task_ids, state_rows, ctl, blocks: BlockTable,
     (SIM_ROWS, N) state and (4, N) control in, (SIM_ROWS, N) state out.
     `lib` is another build of the kernel library (kernel_sweep.py); by
     default the shipped one."""
-    global launches
     if torch.is_grad_enabled() and (table_rows.requires_grad
                                     or state_rows.requires_grad
                                     or ctl.requires_grad):
-        raise RuntimeError(
-            "the physics kernel has no backward pass: to differentiate "
-            "through the physics, step with physics='torch' (the plain "
-            "PyTorch lane engine), or run the kernel under torch.no_grad()")
+        refuse_grad()
     dev = state_rows.device
     n = state_rows.shape[1]
     n_tasks = table_rows.shape[0]
@@ -427,10 +439,10 @@ def launch_rows(table_rows, task_ids, state_rows, ctl, blocks: BlockTable,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"physics kernel launch failed: cudaError {err}")
-    launches += 1
-    for v, c in enumerate(blocks.blocks_by_variant):
-        launches_by_variant[v] += c > 0
-        blocks_by_variant[v] += c
+    # a launch recorded into a CUDA graph runs at each replay, and whoever
+    # replays the graph counts it
+    if not torch.cuda.is_current_stream_capturing():
+        count(blocks.blocks_by_variant)
     return out
 
 

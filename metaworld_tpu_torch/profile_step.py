@@ -9,8 +9,11 @@ warm-up steps, the first of which loads the kernel library, then `--steps`
 steps of fresh uniform actions. Prints the set-up's spans (`engine.*`,
 `physics.load`) in ms, then every span of the step (`step`, `step.*`,
 `physics.*`) in host ms per step, total and self (less its children's
-spans), each line beside the card's name and power limit, and a JSON line
-last. The steps issue their work with no synchronise, so the times are what
+spans), then how the measured steps ran (`vector`'s counters and the share
+that replayed the engine's CUDA graph), each line beside the card's name
+and power limit, and a JSON line last. On the card the layers' spans run
+only where the engine's constructor steps once and captures its graph
+(`engine.graph`); a replayed step has the spans `step` and `step.graph`. The steps issue their work with no synchronise, so the times are what
 the host spends issuing each layer, which paces the step while the card
 waits; `wall_ms_per_step` is the same steps from a synchronise before the
 first to one after the last. Runs on the card; `--device cpu` runs the
@@ -26,7 +29,7 @@ import time
 
 import torch
 
-from metaworld_tpu_torch import devices, tracing
+from metaworld_tpu_torch import devices, tracing, vector
 from metaworld_tpu_torch.bench import TASK_SETS, build_envs
 
 
@@ -73,6 +76,7 @@ def main(argv=None):
 
     acts = [act() for _ in range(args.steps)]
     sync()
+    vector.reset_counts()
     tracing.enable()
     t0 = time.perf_counter()
     for a in acts:
@@ -86,9 +90,13 @@ def main(argv=None):
               f"self {v['self']:.4f} ms")
     print(f"[step] {card}: {args.tasks} wall {wall_ms:.4f} ms a step "
           f"over {args.steps} steps ({dropped} spans dropped)")
+    graph = {"captures": vector.graph_captures, "replays": vector.graph_replays,
+             "eager_steps": vector.eager_steps,
+             "state_copy_ins": vector.state_copy_ins, "hit_share": vector.hit_share()}
+    print(f"[graph] {card}: {args.tasks} " + ", ".join(f"{k} {v}" for k, v in graph.items()))
     print(json.dumps({"card": card, "tasks": args.tasks, "envs": eng.num_envs,
                       "steps": args.steps, "setup_ms": setup, "span_ms": spans,
-                      "wall_ms_per_step": wall_ms}))
+                      "wall_ms_per_step": wall_ms, "graph": graph}))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,8 @@ captured CUDA graph.
 The names, by layer:
 
     step            vector.FusedBatchedEnvs.step
+      step.graph      the replay of the engine's CUDA graph (the kernel's
+                      engines): the layers below then ran only at capture
       step.physics    the control step: physics.weld, physics.pack,
                       physics.launch, physics.unpack (the CUDA kernel) or
                       physics.plain (the plain PyTorch version)
@@ -28,7 +30,9 @@ The names, by layer:
       step.autoreset  NEXT_STEP autoreset
     physics.load    building or loading the kernel library (first launch)
     engine.build    vector.FusedBatchedEnvs.__init__: engine.scene_table,
-                    engine.block_table, engine.reset_table
+                    engine.block_table, engine.reset_table, engine.graph
+                    (the kernel's engines: one eager step and the capture
+                    of the step, each with the step's layers above)
     ppo.rollout     train_ppo.rollout, with ppo.policy (policy_sample)
     ppo.gae         train_ppo.gae
     ppo.learn       train_ppo.learn, with ppo.minibatch (loss and Adam step)

@@ -56,6 +56,18 @@ class _Tree:
         return tree_map(fn, self, *others)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a (nested) container in the order `tree_map` visits
+    them; tuples and lists are walked too, and None holds none."""
+    if tree is None:
+        return []
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif not isinstance(tree, (list, tuple)):
+        return [tree]
+    return [x for sub in tree for x in tree_leaves(sub)]
+
+
 def tree_map(fn, tree, *others):
     """Apply `fn` to every leaf of a (nested) container, zipping `others`
     of the same structure alongside."""

@@ -23,6 +23,29 @@ of the JAX package). Differences in form, not in result:
 `terminate_on_success` and `autoreset` take the JAX engine's meaning: a
 success terminates the episode, and without autoreset no slot is ever
 pending, so each step returns its own observation.
+
+On a CUDA device with the kernel (`physics="cuda"`) the step is one CUDA
+graph per engine. The constructor runs the step once eagerly on a reset
+state of its own (which loads the kernel library and the step's kernels),
+then captures the whole step on that state and an (N, 4) action buffer:
+the weld target, pack, kernel launch and unpack, the guard, every task's
+tail and the concatenations, the autoreset and the bookkeeping, and last
+the copy of the new state into the state it read. A step whose inputs fit
+the graph copies in the actions and whatever state leaf is not already the
+engine's own, replays the graph on the caller's current stream and copies
+the outputs out; so the replay runs the eager step's kernels in its order
+on the same data, and the host issues a handful of calls instead of a few
+thousand. The engine's generator is registered with the graph, so a replay
+draws the autoreset's goal rows as an eager step would and advances the
+generator as far. The CPU and the plain physics step eagerly. The graph
+holds the step's settings (`STEP_SETTINGS`) as they were at its capture:
+setting one to a new value captures the graph again. Every other
+attribute the step reads is fixed at construction.
+
+The module counts how steps ran (`graph_captures`, `graph_replays`,
+`eager_steps`, `state_copy_ins`; `hit_share`), beside the kernel's own
+launch counters in `physics.cuda_step`, which count an eager launch
+where it runs and a replayed one in `_replay`.
 """
 
 from __future__ import annotations
@@ -33,13 +56,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from metaworld_tpu_torch.devices import device_key
 from metaworld_tpu_torch.envs import registry
 from metaworld_tpu_torch.envs.core import (
     TaskSpec, env_reset, keep_stable, post_step, select_slots)
 from metaworld_tpu_torch.physics import cuda_step, engine_lanes
 from metaworld_tpu_torch.tracing import span
 from metaworld_tpu_torch.types import (
-    MAX_PATH_LENGTH, EnvState, _Tree, tree_map)
+    MAX_PATH_LENGTH, EnvState, _Tree, tree_leaves, tree_map)
 
 OUT_KEYS = (
     "obs", "reward", "terminated", "truncated", "done", "episode_return",
@@ -48,6 +72,29 @@ OUT_KEYS = (
 )
 _METRICS = ("success", "near_object", "grasp_success", "grasp_reward",
             "in_place_reward", "obj_to_target", "unscaled_reward")
+
+# the attributes the step reads as Python values: a CUDA graph holds them
+# as they were at its capture
+STEP_SETTINGS = frozenset(
+    ("terminate_on_success", "max_episode_steps", "autoreset", "task_select"))
+
+# how the fused steps ran (reset_counts() zeroes them)
+graph_captures = 0   # CUDA graphs captured, one per engine with the kernel
+graph_replays = 0    # steps run by replaying an engine's graph
+eager_steps = 0      # steps run op by op
+state_copy_ins = 0   # state leaves copied into an engine's own buffers
+
+
+def reset_counts():
+    global graph_captures, graph_replays, eager_steps, state_copy_ins
+    graph_captures = graph_replays = eager_steps = state_copy_ins = 0
+
+
+def hit_share() -> float | None:
+    """The share of the steps since `reset_counts` that replayed a graph
+    (None before any step)."""
+    steps = graph_replays + eager_steps
+    return graph_replays / steps if steps else None
 
 
 @dataclasses.dataclass
@@ -71,6 +118,17 @@ class FusedBatchedEnvs:
     one-hot block of `num_tasks` columns (default: one per spec) with spec
     i's slots on column `task_indices[i]` (default: i), as the reference's
     OneHotWrapper numbers tasks within a benchmark.
+
+    With the kernel, the engine keeps one state of its own, which its CUDA
+    graph reads and overwrites (see the module's docstring): the state a
+    step returns is that state, and the engine's next step overwrites it in
+    place. Step from the newest state; clone a state (`tree_map(torch.clone,
+    state)`) to keep it. The outputs are fresh tensors of every step's own.
+    Setting one of `STEP_SETTINGS` captures the graph again; the step's
+    other attributes are fixed at construction. `graph_pool_bytes` is what
+    the capture reserved for the graph's private pool (its intermediates
+    and outputs), `graph_buffer_bytes` the outputs and the action buffer
+    the graph keeps; both 0 without a graph.
     """
 
     def __init__(
@@ -167,6 +225,20 @@ class FusedBatchedEnvs:
                 self._slot_goal_n = torch.from_numpy(
                     np.asarray(n_goals)[slot_task].astype(np.float32)).to(dev)
 
+            self._graph = None
+            self.graph_pool_bytes = self.graph_buffer_bytes = 0
+            if physics == "cuda":
+                with span("engine.graph"):
+                    self._capture()
+
+    def __setattr__(self, name, value):
+        recapture = (name in STEP_SETTINGS and getattr(self, "_graph", None) is not None
+                     and getattr(self, name) != value)
+        super().__setattr__(name, value)
+        if recapture:
+            with span("engine.graph"):
+                self._capture()
+
     @property
     def task_names(self) -> list[str]:
         return [s.name for s in self.specs]
@@ -253,9 +325,89 @@ class FusedBatchedEnvs:
 
     def step(self, state: FusedState, actions):
         """One step of every slot. Returns (new_state, outputs) with the 14
-        output keys of the JAX engine."""
+        output keys of the JAX engine. With the kernel, `new_state` is the
+        engine's own state, which its next step overwrites in place (see the
+        class docstring); the outputs stay what this step returned."""
+        global eager_steps
         with span("step"):
+            if self._graph is not None:
+                return self._replay(state, actions)
+            eager_steps += 1
             return self._step(state, actions)
+
+    def _capture(self):
+        """Capture the step as a CUDA graph on a reset state of the engine's
+        own, after one eager step on it; the generator's state is left as it
+        was. The reset state becomes the engine's state buffers, the
+        captured step's outputs its output buffers. A graph captured before
+        is dropped first, with its pool."""
+        global graph_captures
+        self._graph = self._g_state = self._g_leaves = self._g_act = self._g_out = None
+        dev = torch.device(device_key(self.device))
+        with torch.cuda.device(dev), torch.inference_mode(False), torch.no_grad():
+            rng = self._gen.get_state()
+            state, _ = self.reset()
+            act = torch.zeros(self.num_envs, 4, device=dev)
+            self._step(state, act)
+            leaves = tree_leaves(state)
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self._gen)
+            torch.cuda.synchronize(dev)
+            reserved = torch.cuda.memory_reserved(dev)
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    new, out = self._step(state, act)
+                    # the new state into the one the step read, one foreach
+                    # copy per dtype; a leaf the step passes through is the
+                    # buffer itself
+                    ptrs = {x.untyped_storage().data_ptr() for x in leaves}
+                    by_dtype = {}
+                    for buf, x in zip(leaves, tree_leaves(new)):
+                        if x is not buf:
+                            assert x.untyped_storage().data_ptr() not in ptrs
+                            bufs, xs = by_dtype.setdefault(x.dtype, ([], []))
+                            bufs.append(buf)
+                            xs.append(x)
+                    for bufs, xs in by_dtype.values():
+                        torch._foreach_copy_(bufs, xs)
+                    assert not any(v.untyped_storage().data_ptr() in ptrs
+                                   for v in out.values())
+                finally:
+                    graph.capture_end()
+            self._gen.set_state(rng)
+            self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self._graph, self._g_state, self._g_leaves = graph, state, leaves
+        self._g_act, self._g_out = act, out
+        self.graph_buffer_bytes = sum(
+            t.numel() * t.element_size() for t in (act, *out.values()))
+        graph_captures += 1
+
+    def _replay(self, state, actions):
+        """The step by the engine's graph: the actions must be (N, 4)
+        float32 on the engine's device, and the kernel has no backward."""
+        global graph_replays, state_copy_ins
+        act = self._g_act
+        if (actions.dtype != act.dtype or actions.shape != act.shape
+                or actions.device != act.device):
+            raise ValueError(
+                f"actions of shape {tuple(actions.shape)}, {actions.dtype} on "
+                f"{actions.device}; the step takes {tuple(act.shape)}, "
+                f"{act.dtype} on {act.device}")
+        if torch.is_grad_enabled() and actions.requires_grad:
+            cuda_step.refuse_grad()
+        copies = [(buf, x) for buf, x in zip(self._g_leaves, tree_leaves(state))
+                  if x is not buf]
+        for buf, x in copies:
+            buf.copy_(x)
+        act.copy_(actions)
+        with span("step.graph"):
+            self._graph.replay()
+        graph_replays += 1
+        state_copy_ins += len(copies)
+        # the captured step's one kernel launch ran again
+        cuda_step.count(self.block_table.blocks_by_variant)
+        return self._g_state, {k: v.clone() for k, v in self._g_out.items()}
 
     def _step(self, state, actions):
         env = state.env

@@ -27,7 +27,7 @@ import io
 
 import torch
 
-from metaworld_tpu_torch.types import _Tree
+from metaworld_tpu_torch.types import _Tree, tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -244,18 +244,6 @@ class PseudoRandomGoals:
 # ---------------------------------------------------------------------------
 
 
-def _leaves(tree) -> list:
-    """The tensors of a tree of dataclasses and tuples, in field order
-    (None holds none)."""
-    if tree is None:
-        return []
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if dataclasses.is_dataclass(tree):
-        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
-    return [t for sub in tree for t in _leaves(sub)]
-
-
 def _fill(template, leaves):
     """`template` with its tensors replaced, in order, from the iterator
     `leaves`, each moved to its template tensor's device."""
@@ -287,9 +275,9 @@ def checkpoint(vstate, wrapper_states=None, envs=None) -> bytes:
     (the engine or a pipeline around it), also the state of the engine's
     generator, from which random-mode autoresets draw their goals. The host
     RNG of `sample_tasks` is not carried, as in the JAX package."""
-    payload = {"vstate": [t.detach().cpu() for t in _leaves(vstate)]}
+    payload = {"vstate": [t.detach().cpu() for t in tree_leaves(vstate)]}
     if wrapper_states is not None:
-        payload["wrappers"] = [t.detach().cpu() for t in _leaves(wrapper_states)]
+        payload["wrappers"] = [t.detach().cpu() for t in tree_leaves(wrapper_states)]
     if envs is not None:
         payload["generator"] = envs._gen.get_state()
     buf = io.BytesIO()

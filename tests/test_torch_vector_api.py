@@ -104,3 +104,24 @@ def test_reset_seed_reseeds_random_draws():
     assert not torch.equal(a.env.rand_vec, b.env.rand_vec)
     with pytest.raises(AssertionError):
         te.sample_tasks(a)   # random mode has no pinned rows to advance
+
+
+@pytest.mark.parametrize("physics", ["auto", "torch"])
+def test_cpu_engine_steps_eagerly_and_never_captures(physics):
+    """Only an engine with the CUDA kernel captures its step as a graph: on
+    the CPU (the plain physics) every step runs op by op, is counted as
+    eager, and leaves the graph counters at zero; a new step setting
+    captures nothing either."""
+    envs = tvector.from_benchmark(tbench.MT1("reach-v3", seed=0, num_goals=2),
+                                  envs_per_task=2, physics=physics, device="cpu")
+    assert envs.physics == "torch" and envs._graph is None
+    tvector.reset_counts()
+    state, _ = envs.reset(seed=0)
+    for _ in range(2):
+        state, _ = envs.step(state, torch.zeros(envs.num_envs, 4))
+    assert (tvector.graph_captures, tvector.graph_replays, tvector.eager_steps,
+            tvector.state_copy_ins) == (0, 0, 2, 0)
+    assert tvector.hit_share() == 0.0
+    envs.terminate_on_success = True
+    assert envs._graph is None and tvector.graph_captures == 0
+    assert envs.graph_pool_bytes == envs.graph_buffer_bytes == 0
