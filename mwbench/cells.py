@@ -1,8 +1,9 @@
 """What `BENCHMARK.json` says about one cell, resolved into files by name:
-the configuration's file, the traffic file `traffic/<traffic>.json`, and a
-reader `metrics/<name>.py` for each per-layer metric. A cell, a
-configuration, a traffic mix or a metric is added by adding its file and its
-entry; nothing here names one."""
+the configuration's file, the traffic file `traffic/<traffic>.json`, a
+reader `metrics/<name>.py` for each per-layer metric, and for a traffic
+kind other than the generator's own a loop `kinds/<kind>.py`. A cell, a
+configuration, a traffic mix, a traffic kind or a metric is added by adding
+its file and its entry; nothing here names one."""
 
 from __future__ import annotations
 
@@ -25,14 +26,18 @@ class Cell:
     per_layer: list
     root: pathlib.Path
 
-    def reader(self, metric: str):
-        """The `read(ctx)` function of a per-layer metric."""
-        path = self.root / "mwbench" / "metrics" / f"{metric}.py"
+    def module(self, folder: str, name: str):
+        """The module `mwbench/<folder>/<name>.py` of the cell's checkout."""
+        path = self.root / "mwbench" / folder / f"{name}.py"
         spec = importlib.util.spec_from_file_location(
-            f"mwbench_metric_{metric.replace('.', '_').replace('-', '_')}", path)
+            f"mwbench_{folder}_{name.replace('.', '_').replace('-', '_')}", path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        return mod.read
+        return mod
+
+    def reader(self, metric: str):
+        """The `read(ctx)` function of a per-layer metric."""
+        return self.module("metrics", metric).read
 
 
 def _applies(metric: dict, cell: str) -> bool:

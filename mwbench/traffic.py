@@ -1,6 +1,7 @@
 """The one generator of traffic. A traffic file (`traffic/<name>.json`)
 names its loop by `kind` and sets every parameter of it; the loops are
-closed, each step waiting on nothing but the program's own queue.
+closed, each step waiting on nothing but the program's own queue. The two
+kinds below are built in; any other is a file `kinds/<kind>.py` (`make`).
 
 - `rollout`: every step draws fresh uniform actions in [low, high) from a
   `torch.Generator` seeded from `--seed`, runs the fused step and adds the
@@ -522,4 +523,9 @@ KINDS = {"rollout": Rollout, "ppo": PPO}
 
 
 def make(cell, seed: int, dev, trace: bool):
-    return KINDS[cell.traffic["kind"]](cell, seed, dev, trace)
+    """The loop of the cell's traffic `kind`: one of `KINDS`, or else the
+    class `Loop` of `kinds/<kind>.py` in the cell's checkout, which has the
+    same methods (a subclass of one of these, or a loop of its own)."""
+    kind = cell.traffic["kind"]
+    loop = KINDS[kind] if kind in KINDS else cell.module("kinds", kind).Loop
+    return loop(cell, seed, dev, trace)
