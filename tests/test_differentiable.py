@@ -44,7 +44,12 @@ def test_step_jacobian_finite(name, vec):
     assert not bad, f"{name}: non-finite jacobian leaves {bad}"
 
 
+@pytest.mark.slow
 def test_unrolled_gradient_matches_finite_differences():
+    """Slow (108 s in a whole tier-1 run): test_torch_differentiable.py::
+    test_unrolled_gradient_matches_jax_and_finite_differences computes this
+    same reach-v3 8-step gradient (`_jax_reach_grad`) in tier-1 and holds
+    it to the same central differences."""
     spec, st = _state("reach-v3", [0.05, 0.62, 0.02, -0.06, 0.84, 0.24])
 
     @jax.jit
@@ -64,10 +69,15 @@ def test_unrolled_gradient_matches_finite_differences():
     np.testing.assert_allclose(g, fd, rtol=2e-2, atol=2e-3)
 
 
+@pytest.mark.slow
 def test_apg_learns_reach():
     """Backprop-through-physics policy optimization reaches >=25% success on
     reach-v3 within 40 updates (scripts/train_apg.py converges to 100% in
-    ~90; this is the smoke-sized version)."""
+    ~90; this is the smoke-sized version).
+
+    Slow (220 s in a whole tier-1 run): test_torch_differentiable_apg.py::
+    test_first_apg_update_gradient_matches_jax runs the JAX APG loss's
+    gradient through the per-env engine in tier-1."""
     import optax
     from flax import linen as nn
 

@@ -66,13 +66,19 @@ def test_lanes_matches_reference_engine(name):
         sim = sim_a
 
 
+@pytest.mark.slow
 def test_pallas_kernel_matches_lanes_interpret():
     """The Pallas kernel (interpret mode on CPU) reproduces the lane engine
     on a mixed-task batch — validates the packed row layout, the in-kernel
     unpack, AND the per-block task specialization (block 8 over 3 tasks x 8
     slots yields one pure block per task: objects-only for pick-place,
     fixture-only for door-open, mixed for hammer) against the generic XLA
-    path."""
+    path.
+
+    Slow (1007 s in a whole tier-1 run): the port never runs this kernel;
+    test_torch_layout.py holds its row layout and block-variant rule to
+    pallas_step's, and test_torch_kernel_host.py the port's four kernel
+    variants to the plain physics."""
     specs, tables = [], []
     for name in TASKS:
         bench = mw.MT1(name, seed=0, num_goals=2)

@@ -3,6 +3,7 @@
 
 import jax
 import numpy as np
+import pytest
 
 import metaworld_tpu as mw
 from metaworld_tpu.evaluation import metalearning_evaluation
@@ -89,9 +90,14 @@ def test_metalearning_task_pinning():
     assert not np.array_equal(round_goals[1], round_goals[2])
 
 
+@pytest.mark.slow
 def test_mt50_fused_batch_smoke():
     """One fused step over ALL 50 tasks (construction + physics + per-task
-    tails + autoreset in a single program)."""
+    tails + autoreset in a single program).
+
+    Slow (199 s in a whole tier-1 run): test_torch_fused_mt50.py::
+    test_fused_step_matches_jax builds and steps the JAX MT50 fused engine,
+    one-hot ids, all 50 tails and autoreset, for 10 steps in tier-1."""
     envs = mw.make_mt_envs("MT50", seed=0, envs_per_task=1, use_one_hot=True)
     assert envs.num_envs == 50
     assert envs.obs_dim == 39 + 50

@@ -2,9 +2,9 @@
 against the JAX package's per-env `env_step` (which runs the readable
 `physics/engine.py`). The 50 tasks are dealt over five files,
 test_torch_env_step_a.py to _e.py (`tasks(part)`: every fifth task from
-the part's index), ten each: pytest-xdist's loadfile schedule starts
-files with more tests first, and a file of more than ten tests would start
-before, and so delay, the long tests/test_engine_lanes.py (11 tests).
+the part's index), ten each: pytest-xdist's loadfile schedule runs a
+file on one worker, so five short files spread over the workers where one
+long file would hold one of them.
 
 Per task, from the reset of its first MT1(seed=0) goal: two slots, one
 driven by seeded random actions and one by the task's JAX scripted expert,
@@ -57,11 +57,9 @@ from metaworld_tpu_torch.envs import core as tcore
 from metaworld_tpu_torch.envs import registry as treg
 from metaworld_tpu_torch.physics import cuda_step
 from metaworld_tpu_torch.types import tree_map
+from tests.jax_step import OUT_TOL, TOL, guarded_step
 
 STEPS = 25
-TOL = dict(hand_vel=1e-4, obj_vel=1e-4, obj_angvel=1e-4, joint_v=1e-4,
-           gripper_vel=3e-4)
-OUT_TOL = 1e-4
 # task -> where engine.py and engine_lanes.py part (ROADMAP C2)
 ENGINES_DIFFER = {
     "soccer-v3": "expert slot, step 13: the rolling ball's obj_angvel "
@@ -76,21 +74,6 @@ def tasks(part: int) -> list:
 
 _control = jax.jit(j_engine.control_step)
 _lane_control = jax.jit(j_lanes.control_step)
-
-
-def _guarded_step(physics, spec, post, state, act):
-    """The JAX per-env step's body (envs/core.py:207-238 of the JAX
-    package) with `physics(scene, sim, action)` for its physics and the
-    jitted `post` for post_step."""
-    act = jnp.asarray(act)
-    sim = physics(spec.scene_device, state.sim, act)
-    stable = (jnp.isfinite(sim.hand).all() & jnp.isfinite(sim.obj_pos).all()
-              & jnp.isfinite(sim.joint_q).all() & jnp.isfinite(sim.gripper).all())
-    sim = jax.tree.map(lambda new, old: jnp.where(stable, new, old), sim, state.sim)
-    state, out = post(state.replace(sim=sim, path_length=state.path_length + 1), act)
-    return state, out.replace(
-        reward=jnp.where(stable, out.reward, 0.0),
-        unscaled_reward=jnp.where(stable, out.unscaled_reward, 0.0))
 
 
 def _lane_physics(scene, sim, act):
@@ -141,13 +124,13 @@ def _references(name, spec, post, state, act):
     first: for ENGINES_DIFFER tasks the lane engine's step (jitted), then
     the eager reruns (C1)."""
     if name in ENGINES_DIFFER:
-        yield "lane engine", _guarded_step(_lane_physics, spec, post, state, act)
+        yield "lane engine", guarded_step(_lane_physics, spec, post, state, act)
     with jax.disable_jit():
         eager = j_env_step(spec, state, jnp.asarray(act))
     yield "eager engine.py", eager
     if name in ENGINES_DIFFER:
         with jax.disable_jit():
-            eager = _guarded_step(_lane_physics, spec, post, state, act)
+            eager = guarded_step(_lane_physics, spec, post, state, act)
         yield "eager lane engine", eager
 
 
@@ -224,8 +207,8 @@ def check_part(part: int) -> dict:
         acts = [np.stack([c.rng.uniform(-1, 1, 4),
                           np.asarray(c.expert(c.obs[1]))]).astype(np.float32)
                 for c in cases]
-        ref = [_stack([_host(_guarded_step(_control, c.spec, c.post,
-                                           _one(c.state, i), a[i]))
+        ref = [_stack([_host(guarded_step(_control, c.spec, c.post,
+                                          _one(c.state, i), a[i]))
                        for i in range(2)]) for c, a in zip(cases, acts)]
         with torch.inference_mode():
             states = [convert.env_from_dict(convert.as_dict(c.state), "cpu")
